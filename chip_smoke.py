@@ -6,25 +6,33 @@
 Phases, each of which raises on failure (the exit code is then nonzero
 and no result line is printed):
 
-1. build — print the card's name and power limit, compile the
-   flash-attention kernel from ``src/repro_torch/kernels/csrc`` with
-   ``nvcc`` for ``sm_90a`` and print the build seconds;
-2. kernel against its plain version — the kernel against
-   ``ref.attention_ref`` on the card at the serving path's shapes and at
-   prefill, MQA/f32, window, softcap and ragged shapes, within the
-   tolerance of ``tests/test_kernels.py`` (bf16 2e-2, f32 2e-5);
-3. times — kernel, plain version and PyTorch's
-   ``scaled_dot_product_attention`` (a yardstick only: the port never
-   calls it) at S = 32 and S = 2048, beside the kernel's bound;
-4. serve — full-width llama3.2-1b (bf16, seeded random weights) through
+1. build — print the card's name and power limit, compile both kernels
+   from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``
+   (one ``nvcc`` per source, started together), print the build seconds
+   and what ``ptxas -v`` says of registers and spills;
+2. kernels against their plain versions on the card —
+   K1 (flash attention) against ``ref.attention_ref`` at the serving
+   paths' shapes (llama3.2-1b D=64, recurrentgemma-2b MQA D=256 with its
+   window) and at prefill, MQA/f32, window, softcap and ragged shapes,
+   within ``tests/test_kernels.py``'s tolerance (bf16 2e-2, f32 2e-5);
+   K2 (the RG-LRU scan) against ``ref.rglru_ref`` at 1e-5 over
+   ``tests/test_kernels.py``'s sweep, the serving shapes, S=2048 and an
+   ``h0`` continuation;
+3. times — each kernel, its plain version and, where one PyTorch call
+   computes the same function, that call (a yardstick only: the port
+   never calls it), beside the kernel's bound;
+4. serve llama3.2-1b — full width (bf16, seeded random weights) through
    ``repro_torch.launch.serve``: 8 requests, max batch 4, 16 new tokens,
-   policy ``prediction``; every prefill attention must have launched the
-   kernel (16 layers × prefills), every request must finish, and a small
-   float32 model must give the same logits and greedy tokens on the card
+   policy ``prediction``; K1 must have launched 16 × prefills;
+5. serve recurrentgemma-2b — the same at its full width; K2 must have
+   launched 18 × prefills and K1 8 × prefills.  For each model a small
+   float32 one must give the same logits and greedy tokens on the card
    as the plain path on the CPU.
 
-The last two lines are the kernels' JSON record and the result line
-``{"ok": true, "device": {...}}``.  Needs one CUDA device; fails without.
+The launch counts of each serving path are set to 0 just before it and
+read just after.  The last two lines are the kernels' JSON record and the
+result line ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
+fails without.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core FLOP/s
@@ -41,7 +50,7 @@ from pathlib import Path
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
-N_LAYERS = 16
+SCAN_TOL = 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -66,15 +75,34 @@ def attention_inputs(torch, B, S, H, KV, D, dtype, *, seed, scale=1.0):
             randn(B, S, KV, D))
 
 
-def bound(B, S, H, KV, D) -> tuple[float, str]:
+def scan_inputs(torch, B, S, R, *, seed):
+    """a in (0, 1) and b small, as the model's gates make them; h0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.sigmoid(torch.randn((B, S, R), generator=g, device="cuda"))
+    b = torch.randn((B, S, R), generator=g, device="cuda") * 0.1
+    h0 = torch.randn((B, R), generator=g, device="cuda")
+    return a, b, h0
+
+
+def attention_bound(B, S, H, KV, D, window=None) -> tuple[float, str]:
     """Least time on the card for causal bf16 attention, ms: its
-    operations (4·D per unmasked query-key pair, S(S+1)/2 pairs a head)
-    at the tensor-core peak, or the bytes of q, k, v and o once each at
-    the memory rate, whichever is larger."""
-    ops_s = 4 * B * H * (S * (S + 1) // 2) * D / PEAK_BF16_FLOPS
+    operations (4·D per unmasked query-key pair) at the tensor-core
+    peak, or the bytes of q, k, v and o once each at the memory rate,
+    whichever is larger."""
+    w = S if window is None else min(window, S)
+    pairs = sum(min(i + 1, w) for i in range(S))
+    ops_s = 4 * B * H * pairs * D / PEAK_BF16_FLOPS
     bytes_s = (2 * B * S * H * D + 2 * B * S * KV * D) * 2 / PEAK_BYTES
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s >= bytes_s else "bytes")
+
+
+def scan_bound(*tensors) -> tuple[float, str]:
+    """Least time on the card for the scan, ms: the bytes of its inputs
+    (a, b, h0) read once and its outputs (h, h_final) written once, at
+    the memory rate.  Two flops a step: the bytes bound it."""
+    return sum(t.numel() * t.element_size() for t in tensors) \
+        / PEAK_BYTES * 1e3, "bytes"
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -94,35 +122,31 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main() -> int:
-    import torch
+# -- 1. build ------------------------------------------------------------------
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
-    from repro_torch.launch.serve import report, serve
-    from repro_torch.models import forward, init_params
-    from repro_torch.serving import Request, ServingEngine
 
-    # float32 products in full float32 (no TF32) for every comparison
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
-    card = card_line()
-    print(f"card: {card}")
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}; TF32 off for matmul and cuDNN")
+def build(kernels) -> None:
+    from repro_torch.kernels import _build
 
-    # -- 1. build ---------------------------------------------------------
-    t0 = time.perf_counter()
-    lib = fa.build()
-    print(f"[build] {lib.name} in {time.perf_counter() - t0:.1f} s")
+    def timed(mod):
+        t0 = time.perf_counter()
+        lib = mod.build()
+        return lib, time.perf_counter() - t0
 
-    # -- 2. kernel against its plain version --------------------------------
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        built = list(pool.map(timed, kernels))
+    for mod, (lib, secs) in zip(kernels, built):
+        print(f"[build] {lib.name} in {secs:.1f} s")
+        for line in _build.ptxas_report(mod._SOURCE):
+            print(f"[ptxas] {line}")
+
+
+# -- 2. kernels against their plain versions -------------------------------------
+
+
+def check_attention(torch, fa, ref) -> float:
+    """K1 against its plain version; returns the largest error at the
+    serving paths' shapes."""
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # name, B, S, H, KV, D, dtype, window, softcap, input scale
         ("serve S=16", 1, 16, 32, 8, 64, bf16, None, None, 1.0),
@@ -132,6 +156,10 @@ def main() -> int:
         ("window 128", 1, 512, 32, 8, 64, bf16, 128, None, 1.0),
         ("softcap 20", 1, 256, 32, 8, 64, bf16, None, 20.0, 3.0),
         ("ragged S=200", 2, 200, 32, 8, 64, bf16, None, None, 1.0),
+        ("serve D=256 S=4", 1, 4, 10, 1, 256, bf16, 2048, None, 1.0),
+        ("serve D=256 S=23", 1, 23, 10, 1, 256, bf16, 2048, None, 1.0),
+        ("D=256 S=2048", 1, 2048, 10, 1, 256, bf16, 2048, None, 1.0),
+        ("D=256 window 128", 1, 512, 10, 1, 256, bf16, 128, None, 1.0),
     ]
     main_err = 0.0
     for i, (name, B, S, H, KV, D, dt, window, softcap, sc) in \
@@ -147,65 +175,164 @@ def main() -> int:
         err = (o.float() - o_ref.float()).abs().max().item()
         tol = TOL[str(dt).removeprefix("torch.")]
         ok = torch.allclose(o.float(), o_ref.float(), rtol=tol, atol=tol)
-        print(f"[check] {name:15s} {str(dt):15s} max|err| {err:.3e} "
+        print(f"[check] K1 {name:17s} {str(dt):15s} max|err| {err:.3e} "
               f"(rtol=atol={tol:g}) {'ok' if ok else 'FAIL'}")
-        check(ok, f"{name}: kernel disagrees with its plain version")
+        check(ok, f"K1 {name}: kernel disagrees with its plain version")
         if name.startswith("serve"):
             main_err = max(main_err, err)
+    return main_err
 
-    # -- 3. times ---------------------------------------------------------------
+
+def check_scan(torch, k2, ref) -> float:
+    """K2 against its plain version; returns the largest error at the
+    serving path's shapes."""
+    cases = [  # name, B, S, R, with h0, dtype
+        ("sweep 1x128x256", 1, 128, 256, False, torch.float32),
+        ("sweep 2x256x512", 2, 256, 512, False, torch.float32),
+        ("sweep 1x64x1024", 1, 64, 1024, False, torch.float32),
+        ("serve S=4", 1, 4, 2560, False, torch.float32),
+        ("serve S=23", 1, 23, 2560, False, torch.float32),
+        ("prefill S=2048", 1, 2048, 2560, False, torch.float32),
+        ("h0 S=23", 1, 23, 2560, True, torch.float32),
+        ("bf16 in, ragged", 2, 1000, 300, True, torch.bfloat16),
+    ]
+    main_err = 0.0
+    for i, (name, B, S, R, with_h0, dt) in enumerate(cases):
+        a, b, h0 = scan_inputs(torch, B, S, R, seed=100 + i)
+        a, b = a.to(dt), b.to(dt)
+        h0 = h0 if with_h0 else None
+        h, hf = k2.rglru_scan(a, b, h0)
+        torch.cuda.synchronize()
+        want = ref.rglru_ref(a, b, h0)
+        check(h.shape == want.shape and h.dtype == torch.float32
+              and hf.shape == (B, R), f"K2 {name}: kernel gave "
+              f"{h.dtype} {tuple(h.shape)}, {tuple(hf.shape)}")
+        err = max((h - want).abs().max().item(),
+                  (hf - want[:, -1]).abs().max().item())
+        ok = (torch.allclose(h, want, rtol=SCAN_TOL, atol=SCAN_TOL)
+              and torch.allclose(hf, want[:, -1], rtol=SCAN_TOL,
+                                 atol=SCAN_TOL))
+        print(f"[check] K2 {name:17s} {str(dt):15s} max|err| {err:.3e} "
+              f"(rtol=atol={SCAN_TOL:g}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"K2 {name}: kernel disagrees with its plain version")
+        if name.startswith("serve"):
+            main_err = max(main_err, err)
+    # continuation: two halves, the second from the first's final state
+    a, b, h0 = scan_inputs(torch, 2, 64, 2560, seed=200)
+    whole, wf = k2.rglru_scan(a, b, h0)
+    h1, f1 = k2.rglru_scan(a[:, :32].contiguous(), b[:, :32].contiguous(),
+                           h0)
+    h2, f2 = k2.rglru_scan(a[:, 32:].contiguous(), b[:, 32:].contiguous(),
+                           f1)
+    torch.cuda.synchronize()
+    err = max((torch.cat([h1, h2], 1) - whole).abs().max().item(),
+              (f2 - wf).abs().max().item())
+    print(f"[check] K2 h0 continuation: two halves vs whole max|err| "
+          f"{err:.3e} ({SCAN_TOL:g})")
+    check(err <= SCAN_TOL, "K2: two halves differ from the whole")
+    return main_err
+
+
+# -- 3. times -----------------------------------------------------------------------
+
+
+def time_attention(torch, fa, ref, B, S, H, KV, D, window=None) -> dict:
     from torch.nn import functional as F
     sdpa_gqa = tuple(int(x) for x in torch.__version__.split(".")[:2]) \
         >= (2, 5)
-    times = {}
-    for S in (32, 2048):
-        B, H, KV, D = 1, 32, 8, 64
-        q, k, v = attention_inputs(torch, B, S, H, KV, D, bf16, seed=S)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if not sdpa_gqa:
-            kt = kt.repeat_interleave(H // KV, dim=1)
-            vt = vt.repeat_interleave(H // KV, dim=1)
-        gqa_kw = {"enable_gqa": True} if sdpa_gqa else {}
-        iters = 200 if S <= 32 else 20
-        row = {
-            "ms": time_ms(torch, lambda: fa.flash_attention(q, k, v),
-                          iters),
-            "plain_ms": time_ms(torch, lambda: ref.attention_ref(q, k, v),
-                                iters),
-            "library_ms": time_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, **gqa_kw), iters),
-        }
-        row["bound_ms"], row["bound_by"] = bound(B, S, H, KV, D)
-        times[S] = row
-        print(f"[time] flash_attention B={B} S={S} H={H} KV={KV} D={D} "
-              f"bf16: kernel {row['ms']:.5f} ms, plain {row['plain_ms']:.5f}"
-              f" ms, sdpa {row['library_ms']:.5f} ms, bound "
-              f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+    q, k, v = attention_inputs(torch, B, S, H, KV, D, torch.bfloat16,
+                               seed=S + D)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if not sdpa_gqa:
+        kt = kt.repeat_interleave(H // KV, dim=1)
+        vt = vt.repeat_interleave(H // KV, dim=1)
+    gqa_kw = {"enable_gqa": True} if sdpa_gqa else {}
+    mask = None
+    if window is not None and window < S:
+        pos = torch.arange(S, device="cuda")
+        mask = (pos[:, None] >= pos[None, :]) \
+            & (pos[:, None] - pos[None, :] < window)
 
-    # -- 4. serve -------------------------------------------------------------------
-    cfg = get_config("llama3.2-1b")
-    check(cfg.param_dtype == "bfloat16" and cfg.n_layers == N_LAYERS,
-          "unexpected llama3.2-1b config")
+    def library():
+        if mask is None:
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=True, **gqa_kw)
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              **gqa_kw)
+
+    iters = 200 if S <= 32 else 20
+    row = {
+        "ms": time_ms(torch, lambda: fa.flash_attention(q, k, v,
+                                                        window=window),
+                      iters),
+        "plain_ms": time_ms(torch, lambda: ref.attention_ref(
+            q, k, v, window=window), iters),
+        "library_ms": time_ms(torch, library, iters),
+    }
+    row["bound_ms"], row["bound_by"] = attention_bound(B, S, H, KV, D,
+                                                       window)
+    row["shape"] = (f"B={B} S={S} H={H} KV={KV} D={D} bf16"
+                    + (f" window {window}" if window else ""))
+    print(f"[time] K1 {row['shape']}: kernel {row['ms']:.5f} ms, plain "
+          f"{row['plain_ms']:.5f} ms, sdpa {row['library_ms']:.5f} ms, "
+          f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+    return row
+
+
+def time_scan(torch, k2, ref, B, S, R) -> dict:
+    a, b, _ = scan_inputs(torch, B, S, R, seed=S)
+    h, hf = k2.rglru_scan(a, b)
+    row = {
+        "ms": time_ms(torch, lambda: k2.rglru_scan(a, b),
+                      200 if S <= 32 else 50),
+        "plain_ms": time_ms(torch, lambda: ref.rglru_ref(a, b),
+                            50 if S <= 32 else 3),
+        "library_ms": None,     # no single PyTorch call is a linear scan
+    }
+    row["bound_ms"], row["bound_by"] = scan_bound(a, b, h, hf)
+    row["shape"] = f"B={B} S={S} R={R} f32"
+    print(f"[time] K2 {row['shape']}: kernel {row['ms']:.5f} ms, plain "
+          f"{row['plain_ms']:.5f} ms, no library call, bound "
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+    return row
+
+
+# -- 4./5. serving ----------------------------------------------------------------
+
+
+def serve_full_width(torch, arch: str, kernels: dict, expect: dict,
+                     tag: str) -> dict:
+    """Serve ``arch`` at full width through the launcher's code path;
+    returns the launch counts of the run, read just after it."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import report, serve
+    from repro_torch.models import forward, init_params
+
+    cfg = get_config(arch)
+    check(cfg.param_dtype == "bfloat16", f"unexpected {arch} config")
     params = init_params(cfg, device="cuda", seed=0)
     serve(cfg, requests=2, max_batch=4, max_new=2, seed=1,
           params=params)                                      # warm-up
-    fa.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernels.values():
+        mod.launches = 0
     result = serve(cfg, requests=8, max_batch=4, max_new=16,
                    policy="prediction", seed=0, device="cuda",
                    params=params)
-    launches = fa.launches
+    launches = {name: mod.launches for name, mod in kernels.items()}
     engine, reqs = result["engine"], result["requests"]
     for line in report(result):
-        print(f"[serve] {line}")
+        print(f"[{tag}] {line}")
     lat = sorted(r.done_at - r.submitted_at for r in reqs)
-    print(f"[serve] ticks {engine.ticks}, prefills {engine.prefills}, "
+    print(f"[{tag}] ticks {engine.ticks}, prefills {engine.prefills}, "
           f"kernel launches {launches}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
           f"latency max {lat[-1] * 1e3:.1f} ms")
     check(engine.prefills == len(reqs), "not every request was prefilled")
-    check(launches == N_LAYERS * engine.prefills,
-          f"{launches} kernel launches for {engine.prefills} prefills")
+    for name, per_prefill in expect.items():
+        check(launches[name] == per_prefill * engine.prefills,
+              f"{arch}: {launches[name]} {name} launches for "
+              f"{engine.prefills} prefills, want {per_prefill} each")
     check(all(r.done and len(r.output) == 16 for r in reqs),
           "a request did not finish with 16 tokens")
     check(all(0 <= t < cfg.vocab for r in reqs for t in r.output),
@@ -222,14 +349,21 @@ def main() -> int:
     n = len(reqs[0].prompt)
     greedy = logits[0, n - 1:, :cfg.vocab].argmax(-1).tolist()
     same = sum(a == b for a, b in zip(greedy, reqs[0].output))
-    print(f"[serve] request 0: forward argmax equals the engine's token "
+    print(f"[{tag}] request 0: forward argmax equals the engine's token "
           f"at {same}/{len(reqs[0].output)} steps")
-    del result, engine, logits, params
+    return launches
 
-    # a small float32 model: the card (kernel) against the CPU (plain)
-    small = get_smoke_config("llama3.2-1b").replace(
-        d_model=256, n_heads=4, kv_heads=2, head_dim=64, d_ff=512,
-        param_dtype="float32")
+
+def small_model_on_card_and_cpu(torch, arch: str, tag: str,
+                                **overrides) -> None:
+    """A small float32 model: the card (kernels) against the CPU
+    (plain versions), logits and greedy tokens."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import forward, init_params
+    from repro_torch.serving import Request, ServingEngine
+
+    small = get_smoke_config(arch).replace(param_dtype="float32",
+                                           **overrides)
     cpu_model = init_params(small, torch.Generator().manual_seed(0),
                             device="cpu")
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
@@ -239,10 +373,12 @@ def main() -> int:
         l_cpu, _ = forward(cpu_model, toks, small)
         l_gpu, _ = forward(gpu_model, toks.cuda(), small)
     err = (l_gpu.cpu() - l_cpu).abs().max().item()
-    print(f"[check] small f32 model logits, card vs CPU: max|err| "
+    print(f"[{tag}] small f32 model logits, card vs CPU: max|err| "
           f"{err:.3e} (1e-4)")
-    check(err <= 1e-4, "small model logits differ between card and CPU")
-    prompts = [[5, 9, 2, 7], [1, 2, 3], [4, 5, 6, 7, 8], [9, 10]]
+    check(err <= 1e-4, f"{arch}: small model logits differ between card "
+                       "and CPU")
+    prompts = [[5, 9, 2, 7], [1, 2, 3], [4, 5, 6, 7, 8], [9, 10],
+               list(range(20, 34))]
     outs = []
     for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
         eng = ServingEngine(small, model, max_batch=2, max_len=64,
@@ -251,24 +387,78 @@ def main() -> int:
               for p in prompts]
         eng.run_until_drained()
         outs.append([r.output for r in rs])
-    print(f"[check] small f32 engine, greedy tokens card == CPU: "
+    print(f"[{tag}] small f32 engine, greedy tokens card == CPU: "
           f"{outs[0] == outs[1]}")
-    check(outs[0] == outs[1], "greedy tokens differ between card and CPU")
+    check(outs[0] == outs[1], f"{arch}: greedy tokens differ between "
+                              "card and CPU")
 
-    row = times[32]
-    record = {"kernels": [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:96",
-        "launches": launches,
-        "max_abs_err": main_err,
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"],
-    }]}
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru as k2
+
+    # float32 products in full float32 (no TF32) for every comparison
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}; TF32 off for matmul and cuDNN")
+
+    build([fa, k2])
+    fa_err = check_attention(torch, fa, ref)
+    k2_err = check_scan(torch, k2, ref)
+
+    t_fa = time_attention(torch, fa, ref, 1, 32, 32, 8, 64)
+    time_attention(torch, fa, ref, 1, 2048, 32, 8, 64)
+    time_attention(torch, fa, ref, 1, 23, 10, 1, 256, window=2048)
+    time_attention(torch, fa, ref, 1, 2048, 10, 1, 256, window=2048)
+    t_k2 = time_scan(torch, k2, ref, 1, 23, 2560)
+    time_scan(torch, k2, ref, 1, 2048, 2560)
+
+    kernels = {"flash_attention": fa, "rglru_scan": k2}
+    llama = serve_full_width(torch, "llama3.2-1b", kernels,
+                             {"flash_attention": 16}, "serve llama3.2-1b")
+    small_model_on_card_and_cpu(
+        torch, "llama3.2-1b", "serve llama3.2-1b", d_model=256, n_heads=4,
+        kv_heads=2, head_dim=64, d_ff=512)
+    rgemma = serve_full_width(torch, "recurrentgemma-2b", kernels,
+                              {"flash_attention": 8, "rglru_scan": 18},
+                              "serve recurrentgemma-2b")
+    # untied: with tied, scaled embeddings a random model repeats its
+    # last token, and greedy tokens would compare nothing
+    small_model_on_card_and_cpu(
+        torch, "recurrentgemma-2b", "serve recurrentgemma-2b", d_model=256,
+        n_heads=4, kv_heads=1, head_dim=64, d_ff=512, rnn_width=256,
+        tie_embeddings=False)
+
+    def row(name, src, replaces, launches, err, t):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "shape": t["shape"],
+                "launches_by_path": {"llama3.2-1b": llama[name],
+                                     "recurrentgemma-2b": rgemma[name]}}
+
+    record = {"kernels": [
+        row("flash_attention", "flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:96",
+            llama["flash_attention"] + rgemma["flash_attention"], fa_err,
+            t_fa),
+        row("rglru_scan", "rglru.cu", "src/repro/kernels/rglru.py:53",
+            llama["rglru_scan"] + rgemma["rglru_scan"], k2_err, t_k2),
+    ]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps(record))

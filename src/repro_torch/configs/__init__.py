@@ -2,7 +2,8 @@
 
 Each module exposes ``CONFIG`` (the published configuration) and
 ``smoke_config()`` (a reduced same-family config for CPU tests), as in
-:mod:`repro.configs`.  Only llama3.2-1b is ported so far.
+:mod:`repro.configs`.  llama3.2-1b and recurrentgemma-2b are ported so
+far.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from ..models.config import ModelConfig
 #: canonical ids (CLI, exactly as in the reference) → module names
 ARCH_IDS = {
     "llama3.2-1b": "llama3_2_1b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
 
 

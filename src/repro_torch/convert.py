@@ -5,7 +5,10 @@ np.asarray, params)``); this module never imports JAX.  The reference
 stacks each pattern position's weights over depth (``blocks[pos][name]``
 has a leading ``n_units`` axis) and keeps a non-divisible remainder in
 ``rest``; the port holds one module per layer, so ``blocks[pos][name][i]``
-becomes layer ``i * len(pattern) + pos``.
+becomes layer ``i * len(pattern) + pos`` and ``rest[j]`` layer
+``n_units * len(pattern) + j``.  Each leaf must match its port parameter
+in shape and dtype (RG-LRU's gate leaves are float32 in a bfloat16
+model); a mismatch raises rather than casting.
 """
 
 from __future__ import annotations
@@ -38,6 +41,9 @@ def _copy(dst: torch.Tensor, src: np.ndarray, name: str) -> None:
     if tuple(t.shape) != tuple(dst.shape):
         raise ValueError(f"{name}: reference shape {tuple(t.shape)}, port "
                          f"shape {tuple(dst.shape)}")
+    if t.dtype != dst.dtype:
+        raise ValueError(f"{name}: reference dtype {t.dtype}, port dtype "
+                         f"{dst.dtype}")
     dst.copy_(t)
 
 

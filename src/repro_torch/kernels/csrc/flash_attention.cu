@@ -25,7 +25,9 @@
 // runs as scalar fp32 FMAs out of shared memory: far from the operation
 // term, which needs wgmma on the tensor cores (later work).  Each warp
 // carries four query rows so that every shared-memory load of K or V
-// feeds four FMAs.
+// feeds four FMAs.  Head dims 64, 128 and 256 are instantiated; at 256
+// (recurrentgemma's MQA) a block holds 151,808 B of tiles, so one block
+// runs on an SM at a time, and each thread keeps 4 x 8 accumulators.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -213,7 +215,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   auto kernel = flash_attention_kernel<T, D>;
-  // Above 48 KB (D = 128) a block gets the memory only when asked for.
+  // Above 48 KB (D = 128: 78,080 B; D = 256: 151,808 B of the 232,448 a
+  // block may have) a block gets the memory only when asked for.
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -247,6 +250,11 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
                                      softcap, st);
   if (dtype == 1 && D == 128)
     return launch<__nv_bfloat16, 128>(q, k, v, o, B, S, H, KV, window,
+                                      softcap, st);
+  if (dtype == 0 && D == 256)
+    return launch<float, 256>(q, k, v, o, B, S, H, KV, window, softcap, st);
+  if (dtype == 1 && D == 256)
+    return launch<__nv_bfloat16, 256>(q, k, v, o, B, S, H, KV, window,
                                       softcap, st);
   return cudaErrorInvalidValue;
 }

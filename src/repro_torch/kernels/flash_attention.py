@@ -6,7 +6,7 @@ The source is ``csrc/flash_attention.cu``; its header states the bound
 on the card and what the design does about it.  It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C entry point
 at first use, into ``build/`` at the repository root, and loaded with
-``ctypes``.  The plain version of the same function is
+``ctypes`` (:mod:`._build`).  The plain version of the same function is
 :func:`repro_torch.kernels.ref.attention_ref`.
 
 ``launches`` counts the kernel launches made through
@@ -17,73 +17,29 @@ account for.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from . import _build
+
 __all__ = ["flash_attention", "build"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 
 #: kernel launches made through :func:`flash_attention`
 launches = 0
 
-_lib: ctypes.CDLL | None = None
-
-
-def _nvcc() -> str:
-    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
-        if root and (Path(root) / "bin" / "nvcc").exists():
-            return str(Path(root) / "bin" / "nvcc")
-    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not Path(found).exists():
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on "
-                           "PATH to build the flash-attention kernel")
-    return found
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+             + [ctypes.c_float, ctypes.c_void_p])
 
 
 def build() -> Path:
     """Compile ``csrc/flash_attention.cu`` (once per source content) and
-    return the shared library's path.
-
-    Safe when several processes build at once: each compiles to its own
-    temporary name and ``os.replace`` publishes the result atomically.
-    """
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:16]
-    lib = _BUILD_DIR / f"flash_attention-{digest}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-           "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-o", str(tmp), str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
-
-
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.repro_flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return the shared library's path (:func:`._build.build`)."""
+    return _build.build(_SOURCE)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -125,7 +81,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: window {window} < 1")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"flash_attention: softcap {softcap} <= 0")
-    fn = _load().repro_flash_attention_fwd
+    fn = _build.function(_SOURCE, "repro_flash_attention_fwd", _ARGTYPES)
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o

@@ -13,8 +13,9 @@ import torch
 
 from . import flash_attention as _fa
 from . import ref
+from . import rglru as _rglru
 
-__all__ = ["attention"]
+__all__ = ["attention", "rglru"]
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -24,3 +25,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, window=window, softcap=softcap)
     return _fa.flash_attention(q, k, v, window=window, softcap=softcap)
+
+
+def rglru(a: torch.Tensor, b: torch.Tensor,
+          h0: torch.Tensor | None = None
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The linear scan h_t = a_t h_{t−1} + b_t.  a, b: (B, S, R); h0:
+    (B, R) or None.  Returns (h (B, S, R), h_final (B, R)), fp32."""
+    if a.device.type == "cpu":
+        h = ref.rglru_ref(a, b, h0)
+        return h, h[:, -1]
+    return _rglru.rglru_scan(a, b, h0)

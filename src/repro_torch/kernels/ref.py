@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each function here computes the function of its kernel in the simplest
-way (O(S²) attention with the full score matrix, fp32 throughout) and is
-the truth the kernels are held against: on the CPU the wrappers in
+way (O(S²) attention with the full score matrix, the recurrence one step
+at a time, fp32 throughout) and is the truth the kernels are held
+against: on the CPU the wrappers in
 :mod:`repro_torch.kernels.ops` call these, and ``chip_smoke.py``
 compares each kernel with its plain version on the card.  Mirrors
 :mod:`repro.kernels.ref`.  (The flash kernel also rounds its
@@ -16,7 +17,7 @@ import math
 
 import torch
 
-__all__ = ["attention_ref"]
+__all__ = ["attention_ref", "rglru_ref"]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -43,3 +44,19 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
     return o.reshape(B, S, H, D).to(q.dtype)
+
+
+def rglru_ref(a: torch.Tensor, b: torch.Tensor,
+              h0: torch.Tensor | None = None) -> torch.Tensor:
+    """h_t = a_t · h_{t−1} + b_t, step by step.  a, b: (B, S, R); h0:
+    (B, R) or None (zeros).  fp32 math, returns all h, (B, S, R) fp32."""
+    a = a.float()
+    b = b.float()
+    B, S, R = a.shape
+    h = (torch.zeros((B, R), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    hs = torch.empty((B, S, R), dtype=torch.float32, device=a.device)
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        hs[:, t] = h
+    return hs

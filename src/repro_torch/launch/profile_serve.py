@@ -1,12 +1,13 @@
 """Where the serving path's time goes on the card: one
 :func:`repro_torch.launch.serve.serve` run under ``torch.profiler``.
 
-    python -m repro_torch.launch.profile_serve --arch llama3.2-1b \\
+    python -m repro_torch.launch.profile_serve --arch recurrentgemma-2b \\
         [--requests 8] [--max-batch 4] [--max-new 16] [--out FILE]
 
 Prints the wall seconds, the device-kernel seconds and the device's idle
-share of the wall (one stream, so kernels do not overlap), then the
-kernels with the most device time and the port's own kernels.  ``--out``
+share of the wall (one stream, so kernels do not overlap), the kernel
+launches per engine step (prefills and decode ticks), then the kernels
+with the most device time and the port's own kernels (K1, K2).  ``--out``
 also writes them as JSON.  The weights are made, and a warm-up run is
 served, before the profiler starts.  Needs a CUDA device.
 """
@@ -25,7 +26,7 @@ from ..models import init_params
 from .serve import serve
 
 #: kernels of this package, by the name of their CUDA function
-PORT_KERNELS = ("flash_attention_kernel",)
+PORT_KERNELS = ("flash_attention_kernel", "rglru_scan_kernel")
 
 
 def _device_us(evt) -> float:
@@ -77,18 +78,24 @@ def main() -> None:
     top = [row(e) for e in kernels[:args.top]]
     ours = [row(e) for e in kernels
             if any(name in e.key for name in PORT_KERNELS)]
+    engine = result["engine"]
+    steps = engine.prefills + engine.ticks
+    launches = sum(e.count for e in kernels)
     summary = {"card": card, "arch": cfg.name, "requests": args.requests,
                "max_batch": args.max_batch, "max_new": args.max_new,
-               "tokens": result["engine"].tokens_out, "wall_s": wall,
+               "tokens": engine.tokens_out, "wall_s": wall,
                "device_kernel_s": device_s,
                "device_idle_share": 1.0 - device_s / wall,
-               "kernel_launches": sum(e.count for e in kernels),
+               "kernel_launches": launches, "prefills": engine.prefills,
+               "decode_ticks": engine.ticks,
+               "launches_per_step": launches / steps,
                "top": top, "port_kernels": ours}
     print(f"{card}: {cfg.name}, {args.requests} requests, "
           f"{summary['tokens']} tokens; wall {wall:.4f} s (profiled), "
           f"device kernels {device_s:.4f} s, idle share "
-          f"{summary['device_idle_share']:.3f}, "
-          f"{summary['kernel_launches']} kernel launches")
+          f"{summary['device_idle_share']:.3f}, {launches} kernel "
+          f"launches over {engine.prefills} prefills and {engine.ticks} "
+          f"decode ticks ({launches / steps:.1f} a step)")
     for label, rows in (("top", top), ("port kernels", ours)):
         print(f" {label}:")
         for r in rows:

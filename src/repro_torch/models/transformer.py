@@ -1,15 +1,18 @@
-"""The decoder, ATTN pattern — the port of :mod:`repro.models.transformer`.
+"""The decoder, ATTN and RG-LRU patterns — the port of
+:mod:`repro.models.transformer`.
 
 The reference stacks the weights of each pattern position over depth and
-scans over them; the port holds one :class:`AttnLayer` per layer in an
-``nn.ModuleList`` and loops.  Only dense attention archs (llama3.2-1b)
-are ported so far; MoE, RG-LRU and RWKV layers raise.
+scans over them; the port holds one :class:`AttnLayer` or
+:class:`RGLRULayer` per layer in an ``nn.ModuleList`` and loops.  Dense
+attention (llama3.2-1b) and the RG-LRU hybrid (recurrentgemma-2b) are
+ported so far; MoE and RWKV layers raise.
 
 Public entry points, with the reference's names and semantics:
 
 * :func:`init_params` — weights from an explicit ``torch.Generator``
 * :func:`forward` — full-sequence logits
-* :func:`init_cache` — decode state, one ``{"k", "v"}`` dict per layer
+* :func:`init_cache` — decode state, one dict per layer: ``{"k", "v"}``
+  for attention, ``{"h", "conv"}`` for RG-LRU
 * :func:`prefill` — forward that also fills the decode cache
 * :func:`decode_step` — one-token serving step
 
@@ -27,6 +30,7 @@ from torch import nn
 from .config import LayerKind, ModelConfig
 from .layers import (AttnLayer, decode_gqa_attention, fill_attn_layer,
                      rmsnorm)
+from .rglru import RGLRULayer, fill_rglru_layer
 
 __all__ = ["Transformer", "init_params", "forward", "init_cache",
            "prefill", "decode_step", "resolve_device"]
@@ -55,16 +59,20 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
+_PORTED = {LayerKind.ATTN: AttnLayer, LayerKind.RGLRU: RGLRULayer}
+
+
 def _check_kinds(cfg: ModelConfig) -> None:
     kinds = set(cfg.layer_kinds())
-    if kinds != {LayerKind.ATTN}:
+    if not kinds <= set(_PORTED):
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(k.value for k in kinds)}; "
-            "the port serves dense attention layers only so far")
+            "the port serves attention and RG-LRU layers only so far")
 
 
 class Transformer(nn.Module):
-    """Embedding, ``n_layers`` :class:`AttnLayer` blocks and the (tied)
+    """Embedding, ``n_layers`` blocks (:class:`AttnLayer` or
+    :class:`RGLRULayer`, by ``cfg.layer_kinds()``) and the (tied)
     unembedding.  Parameter names follow the reference's tree, with the
     stacked ``blocks`` unstacked into ``layers[i]``."""
 
@@ -84,8 +92,8 @@ class Transformer(nn.Module):
                 torch.empty(cfg.d_model, cfg.padded_vocab(), dtype=dtype,
                             device=device), requires_grad=False)
         self.layers = nn.ModuleList(
-            AttnLayer(cfg, dtype=dtype, device=device)
-            for _ in range(cfg.n_layers))
+            _PORTED[kind](cfg, dtype=dtype, device=device)
+            for kind in cfg.layer_kinds())
 
     def local(self, i: int) -> bool:
         return self.cfg.layer_is_local(i % len(self.cfg.pattern))
@@ -131,7 +139,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
                                         device=generator.device)
                             / math.sqrt(d))
     for layer in model.layers:
-        fill_attn_layer(layer, generator)
+        if isinstance(layer, RGLRULayer):
+            fill_rglru_layer(layer, generator)
+        else:
+            fill_attn_layer(layer, generator)
     return model
 
 
@@ -142,7 +153,10 @@ def forward(params: Transformer, tokens: torch.Tensor,
     h = params.embed_tokens(tokens)
     positions = torch.arange(h.shape[1], device=h.device)
     for i, layer in enumerate(params.layers):
-        h, _, _ = layer(h, positions, local=params.local(i))
+        if isinstance(layer, RGLRULayer):
+            h, _ = layer(h)
+        else:
+            h, _, _ = layer(h, positions, local=params.local(i))
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return params.unembed(h), aux
 
@@ -170,13 +184,23 @@ def _cache_load(x: torch.Tensor) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int,
                device: str | torch.device = "cuda") -> list[dict]:
-    """One ``{"k", "v"}`` pair of (B, Sc, KV, D) zeros per layer; Sc is
-    the window for local layers and ``max_len`` otherwise."""
+    """Zeros, one dict per layer: for attention a ``{"k", "v"}`` pair of
+    (B, Sc, KV, D), Sc the window for local layers and ``max_len``
+    otherwise; for RG-LRU ``{"h": (B, R) float32, "conv": (B, W−1, R)
+    bfloat16}``."""
     _check_kinds(cfg)
     device = resolve_device(device)
     cdtype = _dt(cfg.cache_dtype)
     cache = []
-    for i in range(cfg.n_layers):
+    for i, kind in enumerate(cfg.layer_kinds()):
+        if kind is LayerKind.RGLRU:
+            R = cfg.rnn_width or cfg.d_model
+            cache.append({
+                "h": torch.zeros((B, R), dtype=torch.float32,
+                                 device=device),
+                "conv": torch.zeros((B, cfg.conv_width - 1, R),
+                                    dtype=torch.bfloat16, device=device)})
+            continue
         local = cfg.layer_is_local(i % len(cfg.pattern))
         Sc = min(cfg.window, max_len) if (local and cfg.window) else max_len
         shape = (B, Sc, cfg.kv_heads, cfg.head_dim)
@@ -194,14 +218,20 @@ def decode_step(params: Transformer, token: torch.Tensor, pos: torch.Tensor,
                 cache: list[dict], cfg: ModelConfig
                 ) -> tuple[torch.Tensor, list[dict]]:
     """One serving step.  token: (B,) int; pos: int scalar or (B,) vector
-    (continuous batching).  Writes this step's keys and values into
-    ``cache`` in place; returns (logits (B, V), cache)."""
+    (continuous batching).  Writes this step's keys and values, and the
+    recurrent states, into ``cache`` in place; returns (logits (B, V),
+    cache)."""
     h = params.embed_tokens(token[:, None])
     B = h.shape[0]
     pos = torch.as_tensor(pos, device=h.device)
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
     rows = torch.arange(B, device=h.device)
     for layer, c in zip(params.layers, cache):
+        if isinstance(layer, RGLRULayer):
+            h, state = layer.step(h, c)
+            c["h"].copy_(state["h"])
+            c["conv"].copy_(state["conv"])
+            continue
         q, k, v = layer.qkv(h, positions)
         # Ring semantics are universal: slot = pos % Sc (see reference).
         slot = torch.remainder(pos, c["k"].shape[1])
@@ -234,12 +264,18 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(S, device=h.device)
     cache = init_cache(cfg, B, max_len, device=h.device)
     for i, (layer, c) in enumerate(zip(params.layers, cache)):
+        if isinstance(layer, RGLRULayer):
+            h, state = layer(h)
+            c["h"].copy_(state["h"])
+            c["conv"].copy_(state["conv"])
+            continue
         h, k, v = layer(h, positions, local=params.local(i))
         Sc = c["k"].shape[1]
         if Sc < S:
-            # Ring buffer smaller than the prompt: keep the last Sc keys.
-            assert S % Sc == 0, (S, Sc)
-            k, v = k[:, -Sc:], v[:, -Sc:]
+            # Ring buffer smaller than the prompt: keep the last Sc keys,
+            # each at slot position % Sc as decode reads them.  (The
+            # reference asserts S % Sc == 0, where the roll is 0.)
+            k, v = (torch.roll(x[:, -Sc:], S % Sc, dims=1) for x in (k, v))
         n = k.shape[1]
         c["k"][:, :n] = _cache_store(k, c["k"].dtype)
         c["v"][:, :n] = _cache_store(v, c["v"].dtype)

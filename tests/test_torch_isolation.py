@@ -40,6 +40,7 @@ def _forbidden(name: str) -> bool:
 
 def test_port_has_sources():
     assert (PORT / "kernels" / "csrc" / "flash_attention.cu").exists()
+    assert (PORT / "kernels" / "csrc" / "rglru.cu").exists()
     assert len(FILES) > 20 and (ROOT / "chip_smoke.py").exists()
 
 
@@ -61,17 +62,18 @@ def test_scanner_catches_forbidden_imports(tmp_path):
 
 
 def test_cuda_dispatch_has_no_fallback():
-    """``ops.attention`` sends every non-CPU tensor to the kernel
-    wrapper, which raises for what it cannot launch; no ``try`` wraps
-    the launch."""
+    """``ops.attention`` and ``ops.rglru`` send every non-CPU tensor to
+    the kernel wrapper, which raises for what it cannot launch; no
+    ``try`` wraps the launch or the build."""
     ops = (PORT / "kernels" / "ops.py").read_text()
-    fa = (PORT / "kernels" / "flash_attention.py").read_text()
-    for text in (ops, fa):
-        tree = ast.parse(text)
+    for name in ("ops", "flash_attention", "rglru", "_build"):
+        tree = ast.parse((PORT / "kernels" / f"{name}.py").read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
-    fn = next(n for n in ast.walk(ast.parse(ops))
-              if isinstance(n, ast.FunctionDef) and n.name == "attention")
-    assert "impl" not in [a.arg for a in fn.args.kwonlyargs + fn.args.args]
+    for op in ("attention", "rglru"):
+        fn = next(n for n in ast.walk(ast.parse(ops))
+                  if isinstance(n, ast.FunctionDef) and n.name == op)
+        args = fn.args.kwonlyargs + fn.args.args
+        assert "impl" not in [a.arg for a in args]
 
 
 def test_non_cpu_tensors_go_to_the_kernel():

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rglru as k2
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -123,8 +124,9 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the flash-attention kernel is "
-                    "CUDA C++ for sm_90a and has no CPU mode")
+        pytest.skip("needs a CUDA device: the port's kernels (K1 flash "
+                    "attention, K2 RG-LRU scan) are CUDA C++ for sm_90a "
+                    "and have no CPU mode")
     return torch.device("cuda")
 
 
@@ -148,3 +150,45 @@ def test_kernel_matches_plain(cuda, B, S, H, K, D, window, softcap, dtype):
     assert fa.launches == before + 1
     o_ref = ref.attention_ref(q, k, v, window=window, softcap=softcap)
     torch.testing.assert_close(o.float(), o_ref.float(), **_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,window", [(4, 2048), (23, 2048), (512, 128)])
+def test_kernel_head_dim_256(cuda, S, window):
+    """K1 at recurrentgemma-2b's shapes: MQA, 10 heads, head_dim 256,
+    its window of 2048 (and a window the sequence exceeds)."""
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in _inputs(1, S, 10, 1, 256, seed=S))
+    before = fa.launches
+    o = ops.attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    o_ref = ref.attention_ref(q, k, v, window=window)
+    torch.testing.assert_close(o.float(), o_ref.float(), **_tol("bfloat16"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,S,R,with_h0", [
+    (1, 4, 2560, False),          # the serving path's prefill
+    (1, 23, 2560, True),
+    (2, 256, 512, False),
+    (1, 1000, 300, True),         # ragged R and S
+])
+def test_scan_kernel_matches_plain(cuda, B, S, R, with_h0, dtype):
+    """K2 against its plain version (f32 math both; bf16 inputs are read
+    as f32), at tests/test_kernels.py's 1e-5."""
+    rng = np.random.default_rng(S)
+    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, S, R))))
+    b = rng.standard_normal((B, S, R)) * 0.1
+    at, bt = (torch.from_numpy(x.astype(np.float32)).to(cuda, DTYPES[dtype])
+              for x in (a, b))
+    h0 = (torch.from_numpy(rng.standard_normal((B, R), dtype=np.float32))
+          .to(cuda) if with_h0 else None)
+    before = k2.launches
+    h, hf = ops.rglru(at, bt, h0)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1
+    want = ref.rglru_ref(at, bt, h0)
+    torch.testing.assert_close(h, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(hf, want[:, -1], rtol=1e-5, atol=1e-5)

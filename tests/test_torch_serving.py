@@ -160,3 +160,77 @@ def test_serve_launcher_on_cpu():
     assert result["engine"].prefills == 5
     lines = report(result)
     assert "tok/s" in lines[0] and "p95" in lines[1] and "Δ" in lines[2]
+
+
+# ---------------------------------------------------------------------------
+# recurrentgemma: exact-length prefill, recurrent states in the slots
+# ---------------------------------------------------------------------------
+
+RG_ARCH = "recurrentgemma-2b"
+#: prompts of 3–8 tokens (the reference's conv state is whole from
+#: conv_width − 1 = 3 tokens on; ROADMAP §3); 12 new tokens carry the
+#: longer requests past the 16-slot ring of the local layers
+RG_PROMPTS = {
+    "mixed": ([[1, 2, 3], [4, 5, 6, 7, 8], [9, 10, 11], [12, 13, 14, 15]],
+              4, 2),
+    "ring": ([[5, 9, 2, 7, 11, 3, 8], [21, 22, 23], [30, 31, 32, 33, 34, 35],
+              [40, 41, 42, 43, 44, 45, 46, 47]], 12, 4),
+}
+
+
+@pytest.fixture(scope="module")
+def rg_models():
+    # untied: with tied, scaled embeddings the random smoke model repeats
+    # its last prompt token, and greedy tokens would compare nothing
+    over = dict(param_dtype="float32", tie_embeddings=False)
+    jcfg = jax_smoke_config(RG_ARCH).replace(**over)
+    cfg = get_smoke_config(RG_ARCH).replace(**over)
+    jparams = j_init(jax.random.PRNGKey(0), jcfg)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                              device="cpu")
+    return (jcfg, jparams), (cfg, tparams)
+
+
+@pytest.mark.parametrize("case", list(RG_PROMPTS))
+def test_recurrent_engine_matches_reference(rg_models, case):
+    prompts, max_new, max_batch = RG_PROMPTS[case]
+    jside, tside = rg_models
+    want = _run(jside, JServingEngine, JRequest, JAutoScaler, prompts,
+                max_new, max_batch)
+    got = _run(tside, ServingEngine, Request, AutoScaler, prompts,
+               max_new, max_batch, device="cpu")
+    assert got[0] == want[0]                      # greedy tokens
+    assert [k[0] for k in got[1]] == [k[0] for k in want[1]]
+    assert got[1] == want[1]                      # ids, costs, times
+    assert got[2] == want[2]                      # AutoScaler Δ trace
+    assert got[3] == want[3]
+    assert all(len(o) == max_new for o in got[0])
+    assert any(len(set(o)) > 1 for o in got[0])  # not a repeated token
+
+
+def test_recurrent_engine_prefills_at_exact_length(rg_models):
+    """No bucketing for a recurrent arch: each prompt is prefilled at its
+    own length, and the slot's states are the B=1 prefill's."""
+    _, (cfg, params) = rg_models
+    engine = ServingEngine(cfg, params, max_batch=2, max_len=64,
+                           device="cpu")
+    assert not engine._bucketing
+    seen = []
+    engine._prefill = (lambda p, t, f=engine._prefill:
+                       seen.append(t.shape[1]) or f(p, t))
+    prompt = [3, 1, 4, 1, 5]
+    engine.submit(Request(prompt=prompt, max_new_tokens=1))
+    engine._admit()
+    assert seen == [len(prompt)]
+    from repro_torch.models import prefill
+    _, cache1 = prefill(params, torch.tensor([prompt]), cfg, max_len=64)
+    for c, c1 in zip(engine.cache, cache1):
+        for name in c:
+            assert torch.equal(c[name][0], c1[name][0]), name
+
+
+def test_serve_launcher_recurrent_on_cpu():
+    cfg = get_smoke_config(RG_ARCH)
+    result = serve(cfg, requests=5, max_batch=2, max_new=4, device="cpu")
+    assert all(r.done and len(r.output) == 4 for r in result["requests"])
+    assert result["engine"].prefills == 5
