@@ -6,10 +6,10 @@
 Phases, each of which raises on failure (the exit code is then nonzero
 and no result line is printed):
 
-1. build — print the card's name and power limit, compile both kernels
-   from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for ``sm_90a``
-   (one ``nvcc`` per source, started together), print the build seconds
-   and what ``ptxas -v`` says of registers and spills;
+1. build — print the card's name and power limit, compile the three
+   kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for
+   ``sm_90a`` (one ``nvcc`` per source, started together), print the
+   build seconds and what ``ptxas -v`` says of registers and spills;
 2. kernels against their plain versions on the card —
    K1 (flash attention) against ``ref.attention_ref`` at the serving
    paths' shapes (llama3.2-1b D=64, recurrentgemma-2b MQA D=256 with its
@@ -18,6 +18,10 @@ and no result line is printed):
    K2 (the RG-LRU scan) against ``ref.rglru_ref`` at 1e-5 over
    ``tests/test_kernels.py``'s sweep, the serving shapes, S=2048 and an
    ``h0`` continuation;
+   K3 (the chunked RWKV-6 WKV) against ``ref.wkv6_ref`` at 1e-4 over
+   ``tests/test_kernels.py``'s sweep at chunk 16 and 32, the serving
+   shapes (64 heads, bf16 r/k/v, a zero initial state), S=2048, a ragged
+   S, a continuation through ``s_final`` and extreme decay;
 3. times — each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (a yardstick only: the port
    never calls it), beside the kernel's bound;
@@ -25,14 +29,17 @@ and no result line is printed):
    ``repro_torch.launch.serve``: 8 requests, max batch 4, 16 new tokens,
    policy ``prediction``; K1 must have launched 16 × prefills;
 5. serve recurrentgemma-2b — the same at its full width; K2 must have
-   launched 18 × prefills and K1 8 × prefills.  For each model a small
-   float32 one must give the same logits and greedy tokens on the card
-   as the plain path on the CPU.
+   launched 18 × prefills and K1 8 × prefills;
+6. serve rwkv6-7b — the same at its full width (7.58 B parameters); K3
+   must have launched 32 × prefills.  For each model a small float32 one
+   must give the same logits and greedy tokens on the card as the plain
+   path on the CPU.
 
 The launch counts of each serving path are set to 0 just before it and
-read just after.  The last two lines are the kernels' JSON record and the
-result line ``{"ok": true, "device": {...}}``.  Needs one CUDA device;
-fails without.
+read just after; a kernel that the path does not run must show 0.  The
+last two lines are the kernels' JSON record and the result line
+``{"ok": true, "device": {...}}``.  Needs one CUDA device; fails
+without.
 """
 
 from __future__ import annotations
@@ -49,8 +56,11 @@ from pathlib import Path
 #: and device-memory bytes/s
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+#: float32 FLOP/s outside the tensor cores (the same data sheet)
+PEAK_F32_FLOPS = 67e12
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 SCAN_TOL = 1e-5
+WKV_TOL = 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -84,6 +94,21 @@ def scan_inputs(torch, B, S, R, *, seed):
     return a, b, h0
 
 
+def wkv_inputs(torch, B, H, S, *, seed, rkv_dtype=None):
+    """As tests/test_kernels.py makes them: r, k, v × 0.5 (in
+    ``rkv_dtype``), w = exp(−exp(n − 1)), u × 0.1; and an initial state
+    × 0.5."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    r, k, v = (randn(B, H, S, 64) * 0.5 for _ in range(3))
+    if rkv_dtype is not None:
+        r, k, v = (t.to(rkv_dtype) for t in (r, k, v))
+    w = torch.exp(-torch.exp(randn(B, H, S, 64) - 1.0))
+    return r, k, v, w, randn(H, 64) * 0.1, randn(B, H, 64, 64) * 0.5
+
+
 def attention_bound(B, S, H, KV, D, window=None) -> tuple[float, str]:
     """Least time on the card for causal bf16 attention, ms: its
     operations (4·D per unmasked query-key pair) at the tensor-core
@@ -103,6 +128,22 @@ def scan_bound(*tensors) -> tuple[float, str]:
     the memory rate.  Two flops a step: the bytes bound it."""
     return sum(t.numel() * t.element_size() for t in tensors) \
         / PEAK_BYTES * 1e3, "bytes"
+
+
+def wkv_bound(inputs, outputs) -> tuple[float, str]:
+    """Least time on the card for the WKV, ms: the bytes of its inputs
+    (r, k, v, w, u and s0 where one is passed) read once and its outputs
+    (y, s_final) written once at the memory rate, or the recurrence's
+    float32 operations — y_t = r_t S + (r_t·(u⊙k_t)) v_t and S = w_t⊙S +
+    k_tᵀv_t, 5·N² + 5·N a token and head — at the float32 peak outside
+    the tensor cores, whichever is larger."""
+    r = inputs[0]
+    B, H, S, N = r.shape
+    bytes_s = sum(t.numel() * t.element_size()
+                  for t in list(inputs) + list(outputs)) / PEAK_BYTES
+    ops_s = B * H * S * (5 * N * N + 5 * N) / PEAK_F32_FLOPS
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s > bytes_s else "bytes")
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -233,6 +274,72 @@ def check_scan(torch, k2, ref) -> float:
     return main_err
 
 
+def check_wkv(torch, k3, ref) -> float:
+    """K3 against its plain version; returns the largest error at the
+    serving path's shapes."""
+    bf16 = torch.bfloat16
+    cases = [  # name, B, H, S, chunk, r/k/v dtype, initial state
+        ("sweep 1x2x64 c16", 1, 2, 64, 16, None, None),
+        ("sweep 1x2x64 c32", 1, 2, 64, 32, None, None),
+        ("sweep 2x4x128 c16", 2, 4, 128, 16, None, None),
+        ("sweep 2x4x128 c32", 2, 4, 128, 32, None, None),
+        ("serve S=4", 1, 64, 4, 16, bf16, "zero"),
+        ("serve S=23", 1, 64, 23, 16, bf16, "zero"),
+        ("prefill S=2048", 1, 64, 2048, 16, bf16, None),
+        ("ragged S=100, s0", 2, 4, 100, 16, None, "random"),
+    ]
+    main_err = 0.0
+    for i, (name, B, H, S, chunk, dt, init) in enumerate(cases):
+        r, k, v, w, u, s0 = wkv_inputs(torch, B, H, S, seed=300 + i,
+                                       rkv_dtype=dt)
+        s0 = {None: None, "zero": torch.zeros_like(s0),
+              "random": s0}[init]
+        y, sf = k3.wkv6(r, k, v, w, u, s0, chunk=chunk)
+        torch.cuda.synchronize()
+        y_ref, s_ref = ref.wkv6_ref(r, k, v, w, u, s0)
+        check(y.shape == y_ref.shape and y.dtype == torch.float32
+              and sf.shape == (B, H, 64, 64), f"K3 {name}: kernel gave "
+              f"{y.dtype} {tuple(y.shape)}, {tuple(sf.shape)}")
+        err = max((y - y_ref).abs().max().item(),
+                  (sf - s_ref).abs().max().item())
+        ok = (torch.allclose(y, y_ref, rtol=WKV_TOL, atol=WKV_TOL)
+              and torch.allclose(sf, s_ref, rtol=WKV_TOL, atol=WKV_TOL))
+        print(f"[check] K3 {name:17s} {str(r.dtype):15s} max|err| "
+              f"{err:.3e} (rtol=atol={WKV_TOL:g}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"K3 {name}: kernel disagrees with its plain version")
+        if name.startswith("serve"):
+            main_err = max(main_err, err)
+    # continuation: two halves, the second from the first's final state
+    r, k, v, w, u, s0 = wkv_inputs(torch, 1, 64, 128, seed=400)
+    whole, s_whole = k3.wkv6(r, k, v, w, u, s0)
+    halves = [tuple(t[:, :, sl].contiguous() for t in (r, k, v, w))
+              for sl in (slice(0, 64), slice(64, None))]
+    y1, s1 = k3.wkv6(*halves[0], u, s0)
+    y2, s2 = k3.wkv6(*halves[1], u, s1)
+    torch.cuda.synchronize()
+    err = max((torch.cat([y1, y2], 2) - whole).abs().max().item(),
+              (s2 - s_whole).abs().max().item())
+    print(f"[check] K3 continuation: two halves vs whole max|err| "
+          f"{err:.3e} ({WKV_TOL:g})")
+    check(torch.allclose(torch.cat([y1, y2], 2), whole, rtol=WKV_TOL,
+                         atol=WKV_TOL)
+          and torch.allclose(s2, s_whole, rtol=WKV_TOL, atol=WKV_TOL),
+          "K3: two halves differ from the whole")
+    # extreme decay: w = 1e-6 everywhere must stay finite (the clamp)
+    r, k, v, _, u, _ = wkv_inputs(torch, 1, 4, 64, seed=401)
+    w = torch.full_like(r, 1e-6)
+    y, sf = k3.wkv6(r, k, v, w, u)
+    torch.cuda.synchronize()
+    y_ref, _ = ref.wkv6_ref(r, k, v, w, u)
+    finite = bool(torch.isfinite(y).all() and torch.isfinite(sf).all())
+    err = (y - y_ref).abs().max().item()
+    print(f"[check] K3 extreme decay w=1e-6: finite {finite}, max|err| "
+          f"{err:.3e} ({WKV_TOL:g})")
+    check(finite and torch.allclose(y, y_ref, rtol=WKV_TOL, atol=WKV_TOL),
+          "K3: extreme decay is not finite or disagrees")
+    return main_err
+
+
 # -- 3. times -----------------------------------------------------------------------
 
 
@@ -297,7 +404,31 @@ def time_scan(torch, k2, ref, B, S, R) -> dict:
     return row
 
 
-# -- 4./5. serving ----------------------------------------------------------------
+def time_wkv(torch, k3, ref, B, H, S, *, zero_s0: bool) -> dict:
+    """K3 at the serving path's inputs: bf16 r/k/v, f32 w and u, and (as
+    prefill passes it) a zero initial state when ``zero_s0``."""
+    r, k, v, w, u, s0 = wkv_inputs(torch, B, H, S, seed=S,
+                                   rkv_dtype=torch.bfloat16)
+    s0 = torch.zeros_like(s0) if zero_s0 else None
+    y, sf = k3.wkv6(r, k, v, w, u, s0)
+    row = {
+        "ms": time_ms(torch, lambda: k3.wkv6(r, k, v, w, u, s0),
+                      200 if S <= 32 else 50),
+        "plain_ms": time_ms(torch, lambda: ref.wkv6_ref(r, k, v, w, u, s0),
+                            20 if S <= 32 else 3),
+        "library_ms": None,     # no single PyTorch call computes the WKV
+    }
+    inputs = [r, k, v, w, u] + ([s0] if s0 is not None else [])
+    row["bound_ms"], row["bound_by"] = wkv_bound(inputs, [y, sf])
+    row["shape"] = (f"B={B} H={H} S={S} N=64 bf16 r/k/v"
+                    + (", zero s0" if zero_s0 else ", no s0"))
+    print(f"[time] K3 {row['shape']}: kernel {row['ms']:.5f} ms, plain "
+          f"{row['plain_ms']:.5f} ms, no library call, bound "
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
+    return row
+
+
+# -- 4.-6. serving ----------------------------------------------------------------
 
 
 def serve_full_width(torch, arch: str, kernels: dict, expect: dict,
@@ -311,6 +442,10 @@ def serve_full_width(torch, arch: str, kernels: dict, expect: dict,
     cfg = get_config(arch)
     check(cfg.param_dtype == "bfloat16", f"unexpected {arch} config")
     params = init_params(cfg, device="cuda", seed=0)
+    print(f"[{tag}] {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}, {cfg.param_dtype}: "
+          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
+          "parameters")
     serve(cfg, requests=2, max_batch=4, max_new=2, seed=1,
           params=params)                                      # warm-up
     torch.cuda.reset_peak_memory_stats()
@@ -345,12 +480,18 @@ def serve_full_width(torch, arch: str, kernels: dict, expect: dict,
           and bool(torch.isfinite(logits).all()),
           f"full-width logits {tuple(logits.shape)} not finite")
     # Teacher-forced, the forward's argmax is what the engine decoded
-    # except where bf16 rounding flips a near-tie (informational).
+    # except where bf16 rounding flips a near-tie (informational): the
+    # gap is how far below the forward's largest logit the engine's
+    # token's logit lies, 0 where they agree.
     n = len(reqs[0].prompt)
-    greedy = logits[0, n - 1:, :cfg.vocab].argmax(-1).tolist()
-    same = sum(a == b for a, b in zip(greedy, reqs[0].output))
+    lg = logits[0, n - 1:, :cfg.vocab].float()
+    chosen = torch.tensor(reqs[0].output, device=lg.device)
+    gap = lg.max(-1).values - lg.gather(-1, chosen[:, None])[:, 0]
+    same = int((lg.argmax(-1) == chosen).sum())
     print(f"[{tag}] request 0: forward argmax equals the engine's token "
-          f"at {same}/{len(reqs[0].output)} steps")
+          f"at {same}/{len(reqs[0].output)} steps; largest gap "
+          f"{gap.max().item():.4f} (logits up to "
+          f"{lg.abs().max().item():.2f})")
     return launches
 
 
@@ -403,6 +544,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru as k2
+    from repro_torch.kernels import wkv6 as k3
 
     # float32 products in full float32 (no TF32) for every comparison
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -413,9 +555,10 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; TF32 off for matmul and cuDNN")
 
-    build([fa, k2])
+    build([fa, k2, k3])
     fa_err = check_attention(torch, fa, ref)
     k2_err = check_scan(torch, k2, ref)
+    k3_err = check_wkv(torch, k3, ref)
 
     t_fa = time_attention(torch, fa, ref, 1, 32, 32, 8, 64)
     time_attention(torch, fa, ref, 1, 2048, 32, 8, 64)
@@ -423,41 +566,52 @@ def main() -> int:
     time_attention(torch, fa, ref, 1, 2048, 10, 1, 256, window=2048)
     t_k2 = time_scan(torch, k2, ref, 1, 23, 2560)
     time_scan(torch, k2, ref, 1, 2048, 2560)
+    t_k3 = time_wkv(torch, k3, ref, 1, 64, 23, zero_s0=True)
+    time_wkv(torch, k3, ref, 1, 64, 2048, zero_s0=False)
 
-    kernels = {"flash_attention": fa, "rglru_scan": k2}
+    kernels = {"flash_attention": fa, "rglru_scan": k2, "wkv6": k3}
     llama = serve_full_width(torch, "llama3.2-1b", kernels,
-                             {"flash_attention": 16}, "serve llama3.2-1b")
+                             {"flash_attention": 16, "rglru_scan": 0,
+                              "wkv6": 0}, "serve llama3.2-1b")
     small_model_on_card_and_cpu(
         torch, "llama3.2-1b", "serve llama3.2-1b", d_model=256, n_heads=4,
         kv_heads=2, head_dim=64, d_ff=512)
     rgemma = serve_full_width(torch, "recurrentgemma-2b", kernels,
-                              {"flash_attention": 8, "rglru_scan": 18},
-                              "serve recurrentgemma-2b")
+                              {"flash_attention": 8, "rglru_scan": 18,
+                               "wkv6": 0}, "serve recurrentgemma-2b")
     # untied: with tied, scaled embeddings a random model repeats its
     # last token, and greedy tokens would compare nothing
     small_model_on_card_and_cpu(
         torch, "recurrentgemma-2b", "serve recurrentgemma-2b", d_model=256,
         n_heads=4, kv_heads=1, head_dim=64, d_ff=512, rnn_width=256,
         tie_embeddings=False)
+    rwkv = serve_full_width(torch, "rwkv6-7b", kernels,
+                            {"flash_attention": 0, "rglru_scan": 0,
+                             "wkv6": 32}, "serve rwkv6-7b")
+    small_model_on_card_and_cpu(torch, "rwkv6-7b", "serve rwkv6-7b")
 
-    def row(name, src, replaces, launches, err, t):
+    paths = {"llama3.2-1b": llama, "recurrentgemma-2b": rgemma,
+             "rwkv6-7b": rwkv}
+
+    def row(name, src, replaces, err, t):
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{src}",
-                "replaces": replaces, "launches": launches,
+                "replaces": replaces,
+                "launches": sum(p[name] for p in paths.values()),
                 "max_abs_err": err, "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "shape": t["shape"],
-                "launches_by_path": {"llama3.2-1b": llama[name],
-                                     "recurrentgemma-2b": rgemma[name]}}
+                "launches_by_path": {arch: p[name]
+                                     for arch, p in paths.items()}}
 
     record = {"kernels": [
         row("flash_attention", "flash_attention.cu",
-            "src/repro/kernels/flash_attention.py:96",
-            llama["flash_attention"] + rgemma["flash_attention"], fa_err,
-            t_fa),
+            "src/repro/kernels/flash_attention.py:96", fa_err, t_fa),
         row("rglru_scan", "rglru.cu", "src/repro/kernels/rglru.py:53",
-            llama["rglru_scan"] + rgemma["rglru_scan"], k2_err, t_k2),
+            k2_err, t_k2),
+        row("wkv6", "wkv6.cu", "src/repro/kernels/rwkv6.py:77", k3_err,
+            t_k3),
     ]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -2,8 +2,8 @@
 
 Each module exposes ``CONFIG`` (the published configuration) and
 ``smoke_config()`` (a reduced same-family config for CPU tests), as in
-:mod:`repro.configs`.  llama3.2-1b and recurrentgemma-2b are ported so
-far.
+:mod:`repro.configs`.  llama3.2-1b, recurrentgemma-2b and rwkv6-7b are
+ported so far.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from ..models.config import ModelConfig
 ARCH_IDS = {
     "llama3.2-1b": "llama3_2_1b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "rwkv6-7b": "rwkv6_7b",
 }
 
 

@@ -6,8 +6,10 @@ stacks each pattern position's weights over depth (``blocks[pos][name]``
 has a leading ``n_units`` axis) and keeps a non-divisible remainder in
 ``rest``; the port holds one module per layer, so ``blocks[pos][name][i]``
 becomes layer ``i * len(pattern) + pos`` and ``rest[j]`` layer
-``n_units * len(pattern) + j``.  Each leaf must match its port parameter
-in shape and dtype (RG-LRU's gate leaves are float32 in a bfloat16
+``n_units * len(pattern) + j``.  Nested leaves (RWKV's ``tm`` and ``cm``
+dicts) map to submodules' parameters by their dotted names.  Each leaf
+must match its port parameter in shape and dtype (RG-LRU's gate leaves
+and RWKV's ``u``, ``w0``, ``gn_w``, ``gn_b`` are float32 in a bfloat16
 model); a mismatch raises rather than casting.
 """
 

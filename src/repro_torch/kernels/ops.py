@@ -14,8 +14,9 @@ import torch
 from . import flash_attention as _fa
 from . import ref
 from . import rglru as _rglru
+from . import wkv6 as _wkv6
 
-__all__ = ["attention", "rglru"]
+__all__ = ["attention", "wkv", "rglru"]
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -25,6 +26,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, window=window, softcap=softcap)
     return _fa.flash_attention(q, k, v, window=window, softcap=softcap)
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor | None = None, *,
+        chunk: int = 16) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV-6 WKV.  r, k, v, w: (B, H, S, N); u: (H, N); s0:
+    (B, H, N, N) or None.  Returns (y (B, H, S, N), s_final (B, H, N, N)),
+    fp32.  ``chunk`` is the kernel's chunk length; the plain version walks
+    the recurrence step by step."""
+    if r.device.type == "cpu":
+        return ref.wkv6_ref(r, k, v, w, u, s0)
+    return _wkv6.wkv6(r, k, v, w, u, s0, chunk=chunk)
 
 
 def rglru(a: torch.Tensor, b: torch.Tensor,

@@ -17,7 +17,7 @@ import math
 
 import torch
 
-__all__ = ["attention_ref", "rglru_ref"]
+__all__ = ["attention_ref", "wkv6_ref", "rglru_ref"]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -44,6 +44,26 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
     return o.reshape(B, S, H, D).to(q.dtype)
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor,
+             s0: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """RWKV-6 WKV, step by step.  r, k, v, w: (B, H, S, N); u: (H, N); s0:
+    (B, H, N, N) or None (zeros).  fp32 math; returns (y (B, H, S, N),
+    s_final (B, H, N, N)), both fp32."""
+    B, H, S, N = r.shape
+    r, k, v, w = (t.float() for t in (r, k, v, w))
+    u = u.float()[None, :, :, None]
+    s = (torch.zeros((B, H, N, N), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    y = torch.empty((B, H, S, N), dtype=torch.float32, device=r.device)
+    for t in range(S):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+        y[:, :, t] = torch.einsum("bhn,bhnm->bhm", r[:, :, t], s + u * kv)
+        s = w[:, :, t, :, None] * s + kv
+    return y, s
 
 
 def rglru_ref(a: torch.Tensor, b: torch.Tensor,

@@ -7,9 +7,10 @@
 Prints the wall seconds, the device-kernel seconds and the device's idle
 share of the wall (one stream, so kernels do not overlap), the kernel
 launches per engine step (prefills and decode ticks), then the kernels
-with the most device time and the port's own kernels (K1, K2).  ``--out``
-also writes them as JSON.  The weights are made, and a warm-up run is
-served, before the profiler starts.  Needs a CUDA device.
+with the most device time and the port's own kernels (K1, K2, K3) with
+their launches per step.  ``--out`` also writes them as JSON.  The
+weights are made, and a warm-up run is served, before the profiler
+starts.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from ..models import init_params
 from .serve import serve
 
 #: kernels of this package, by the name of their CUDA function
-PORT_KERNELS = ("flash_attention_kernel", "rglru_scan_kernel")
+PORT_KERNELS = ("flash_attention_kernel", "rglru_scan_kernel",
+                "wkv6_kernel")
 
 
 def _device_us(evt) -> float:
@@ -75,11 +77,11 @@ def main() -> None:
                 "share_of_device": _device_us(e) / 1e6 / device_s
                 if device_s else None}
 
-    top = [row(e) for e in kernels[:args.top]]
-    ours = [row(e) for e in kernels
-            if any(name in e.key for name in PORT_KERNELS)]
     engine = result["engine"]
     steps = engine.prefills + engine.ticks
+    top = [row(e) for e in kernels[:args.top]]
+    ours = [row(e) | {"launches_per_step": e.count / steps}
+            for e in kernels if any(name in e.key for name in PORT_KERNELS)]
     launches = sum(e.count for e in kernels)
     summary = {"card": card, "arch": cfg.name, "requests": args.requests,
                "max_batch": args.max_batch, "max_new": args.max_new,
@@ -99,8 +101,10 @@ def main() -> None:
     for label, rows in (("top", top), ("port kernels", ours)):
         print(f" {label}:")
         for r in rows:
+            per_step = (f"  ({r['launches_per_step']:.2f} a step)"
+                        if "launches_per_step" in r else "")
             print(f"  {r['device_ms']:10.3f} ms  {r['calls']:6d} calls  "
-                  f"{r['kernel']}")
+                  f"{r['kernel']}{per_step}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)

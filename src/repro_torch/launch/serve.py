@@ -4,6 +4,7 @@ card.  The port of :mod:`repro.launch.serve`, with a ``--device`` flag:
     python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --requests 16 --policy prediction
     python -m repro_torch.launch.serve --arch recurrentgemma-2b
+    python -m repro_torch.launch.serve --arch rwkv6-7b
 """
 
 from __future__ import annotations

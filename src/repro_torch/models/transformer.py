@@ -1,23 +1,30 @@
-"""The decoder, ATTN and RG-LRU patterns — the port of
+"""The decoder, ATTN, RG-LRU and RWKV patterns — the port of
 :mod:`repro.models.transformer`.
 
 The reference stacks the weights of each pattern position over depth and
-scans over them; the port holds one :class:`AttnLayer` or
-:class:`RGLRULayer` per layer in an ``nn.ModuleList`` and loops.  Dense
-attention (llama3.2-1b) and the RG-LRU hybrid (recurrentgemma-2b) are
-ported so far; MoE and RWKV layers raise.
+scans over them; the port holds one :class:`AttnLayer`,
+:class:`RGLRULayer` or :class:`RWKVLayer` per layer in an
+``nn.ModuleList`` and loops.  Dense attention (llama3.2-1b), the RG-LRU
+hybrid (recurrentgemma-2b) and RWKV-6 (rwkv6-7b) are ported so far; MoE
+layers raise.
 
 Public entry points, with the reference's names and semantics:
 
 * :func:`init_params` — weights from an explicit ``torch.Generator``
 * :func:`forward` — full-sequence logits
 * :func:`init_cache` — decode state, one dict per layer: ``{"k", "v"}``
-  for attention, ``{"h", "conv"}`` for RG-LRU
+  for attention, ``{"h", "conv"}`` for RG-LRU, ``{"shift_t", "shift_c",
+  "wkv"}`` for RWKV
 * :func:`prefill` — forward that also fills the decode cache
 * :func:`decode_step` — one-token serving step
 
 Caches are updated in place (the reference returns new arrays); each
 function still returns the cache it was given, so callers read alike.
+An RWKV layer's entries are replaced by the tensors its block returns,
+as the reference's new cache holds them: its shift states come back in
+the model's dtype (float32 in a float32 model) though ``init_cache``
+makes them bfloat16, and the engine's scatter then casts a prefill's
+shifts to whatever dtype its cache holds at that moment (ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from .config import LayerKind, ModelConfig
 from .layers import (AttnLayer, decode_gqa_attention, fill_attn_layer,
                      rmsnorm)
 from .rglru import RGLRULayer, fill_rglru_layer
+from .rwkv import HEAD_SIZE, RWKVLayer, fill_rwkv_layer
 
 __all__ = ["Transformer", "init_params", "forward", "init_cache",
            "prefill", "decode_step", "resolve_device"]
@@ -59,7 +67,8 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
-_PORTED = {LayerKind.ATTN: AttnLayer, LayerKind.RGLRU: RGLRULayer}
+_PORTED = {LayerKind.ATTN: AttnLayer, LayerKind.RGLRU: RGLRULayer,
+           LayerKind.RWKV: RWKVLayer}
 
 
 def _check_kinds(cfg: ModelConfig) -> None:
@@ -67,14 +76,15 @@ def _check_kinds(cfg: ModelConfig) -> None:
     if not kinds <= set(_PORTED):
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {sorted(k.value for k in kinds)}; "
-            "the port serves attention and RG-LRU layers only so far")
+            "the port serves attention, RG-LRU and RWKV layers only so "
+            "far")
 
 
 class Transformer(nn.Module):
-    """Embedding, ``n_layers`` blocks (:class:`AttnLayer` or
-    :class:`RGLRULayer`, by ``cfg.layer_kinds()``) and the (tied)
-    unembedding.  Parameter names follow the reference's tree, with the
-    stacked ``blocks`` unstacked into ``layers[i]``."""
+    """Embedding, ``n_layers`` blocks (:class:`AttnLayer`,
+    :class:`RGLRULayer` or :class:`RWKVLayer`, by ``cfg.layer_kinds()``)
+    and the (tied) unembedding.  Parameter names follow the reference's
+    tree, with the stacked ``blocks`` unstacked into ``layers[i]``."""
 
     def __init__(self, cfg: ModelConfig, *, device) -> None:
         super().__init__()
@@ -141,6 +151,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     for layer in model.layers:
         if isinstance(layer, RGLRULayer):
             fill_rglru_layer(layer, generator)
+        elif isinstance(layer, RWKVLayer):
+            fill_rwkv_layer(layer, generator)
         else:
             fill_attn_layer(layer, generator)
     return model
@@ -153,7 +165,7 @@ def forward(params: Transformer, tokens: torch.Tensor,
     h = params.embed_tokens(tokens)
     positions = torch.arange(h.shape[1], device=h.device)
     for i, layer in enumerate(params.layers):
-        if isinstance(layer, RGLRULayer):
+        if isinstance(layer, (RGLRULayer, RWKVLayer)):
             h, _ = layer(h)
         else:
             h, _, _ = layer(h, positions, local=params.local(i))
@@ -187,12 +199,24 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
     """Zeros, one dict per layer: for attention a ``{"k", "v"}`` pair of
     (B, Sc, KV, D), Sc the window for local layers and ``max_len``
     otherwise; for RG-LRU ``{"h": (B, R) float32, "conv": (B, W−1, R)
-    bfloat16}``."""
+    bfloat16}``; for RWKV ``{"shift_t", "shift_c": (B, d) bfloat16,
+    "wkv": (B, d/64, 64, 64) float32}``."""
     _check_kinds(cfg)
     device = resolve_device(device)
     cdtype = _dt(cfg.cache_dtype)
     cache = []
     for i, kind in enumerate(cfg.layer_kinds()):
+        if kind is LayerKind.RWKV:
+            d = cfg.d_model
+            cache.append({
+                "shift_t": torch.zeros((B, d), dtype=torch.bfloat16,
+                                       device=device),
+                "shift_c": torch.zeros((B, d), dtype=torch.bfloat16,
+                                       device=device),
+                "wkv": torch.zeros((B, d // HEAD_SIZE, HEAD_SIZE,
+                                    HEAD_SIZE), dtype=torch.float32,
+                                   device=device)})
+            continue
         if kind is LayerKind.RGLRU:
             R = cfg.rnn_width or cfg.d_model
             cache.append({
@@ -219,14 +243,18 @@ def decode_step(params: Transformer, token: torch.Tensor, pos: torch.Tensor,
                 ) -> tuple[torch.Tensor, list[dict]]:
     """One serving step.  token: (B,) int; pos: int scalar or (B,) vector
     (continuous batching).  Writes this step's keys and values, and the
-    recurrent states, into ``cache`` in place; returns (logits (B, V),
-    cache)."""
+    recurrent states, into ``cache`` in place (an RWKV layer's dict gets
+    the new state tensors); returns (logits (B, V), cache)."""
     h = params.embed_tokens(token[:, None])
     B = h.shape[0]
     pos = torch.as_tensor(pos, device=h.device)
     positions = pos[None] if pos.dim() == 0 else pos[:, None]
     rows = torch.arange(B, device=h.device)
     for layer, c in zip(params.layers, cache):
+        if isinstance(layer, RWKVLayer):
+            h, state = layer(h, c)
+            c.update(state)
+            continue
         if isinstance(layer, RGLRULayer):
             h, state = layer.step(h, c)
             c["h"].copy_(state["h"])
@@ -264,6 +292,11 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(S, device=h.device)
     cache = init_cache(cfg, B, max_len, device=h.device)
     for i, (layer, c) in enumerate(zip(params.layers, cache)):
+        if isinstance(layer, RWKVLayer):
+            # from the zero state, as the reference synthesizes one
+            h, state = layer(h, c)
+            c.update(state)
+            continue
         if isinstance(layer, RGLRULayer):
             h, state = layer(h)
             c["h"].copy_(state["h"])

@@ -41,6 +41,8 @@ def _forbidden(name: str) -> bool:
 def test_port_has_sources():
     assert (PORT / "kernels" / "csrc" / "flash_attention.cu").exists()
     assert (PORT / "kernels" / "csrc" / "rglru.cu").exists()
+    assert (PORT / "kernels" / "csrc" / "wkv6.cu").exists()
+    assert PORT / "models" / "rwkv.py" in FILES
     assert len(FILES) > 20 and (ROOT / "chip_smoke.py").exists()
 
 
@@ -62,14 +64,14 @@ def test_scanner_catches_forbidden_imports(tmp_path):
 
 
 def test_cuda_dispatch_has_no_fallback():
-    """``ops.attention`` and ``ops.rglru`` send every non-CPU tensor to
-    the kernel wrapper, which raises for what it cannot launch; no
-    ``try`` wraps the launch or the build."""
+    """``ops.attention``, ``ops.wkv`` and ``ops.rglru`` send every
+    non-CPU tensor to the kernel wrapper, which raises for what it cannot
+    launch; no ``try`` wraps the launch or the build."""
     ops = (PORT / "kernels" / "ops.py").read_text()
-    for name in ("ops", "flash_attention", "rglru", "_build"):
+    for name in ("ops", "flash_attention", "rglru", "wkv6", "_build"):
         tree = ast.parse((PORT / "kernels" / f"{name}.py").read_text())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
-    for op in ("attention", "rglru"):
+    for op in ("attention", "wkv", "rglru"):
         fn = next(n for n in ast.walk(ast.parse(ops))
                   if isinstance(n, ast.FunctionDef) and n.name == op)
         args = fn.args.kwonlyargs + fn.args.args

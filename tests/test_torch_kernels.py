@@ -2,9 +2,10 @@
 :func:`repro_torch.kernels.ops.attention` runs its plain version, held
 against ``repro.kernels.ref.attention_ref`` and against the Pallas kernel
 in interpret mode, over the sweep of ``tests/test_kernels.py`` with its
-tolerances.  The CUDA kernel itself is held against the plain version
-in the ``gpu``-marked tests, which need a card.  JAX is imported inside
-the CPU tests only: the machine with the card has none."""
+tolerances.  The CUDA kernels themselves (K1 flash attention, K2 the
+RG-LRU scan, K3 the RWKV-6 WKV) are held against their plain versions in
+the ``gpu``-marked tests, which need a card.  JAX is imported inside the
+CPU tests only: the machine with the card has none."""
 
 import numpy as np
 import pytest
@@ -13,6 +14,7 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rglru as k2
+from repro_torch.kernels import wkv6 as k3
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -116,6 +118,62 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         fa.flash_attention(q, k, v)
 
 
+def _wkv_inputs(B, H, S, *, seed=0, with_s0=False):
+    """tests/test_kernels.py's WKV inputs: r, k, v × 0.5, w =
+    exp(−exp(n − 1)), u × 0.1 (and an initial state), as float32 numpy."""
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((B, H, S, 64)) * 0.5 for _ in range(3))
+    w = np.exp(-np.exp(rng.standard_normal((B, H, S, 64)) - 1.0))
+    u = rng.standard_normal((H, 64)) * 0.1
+    s0 = rng.standard_normal((B, H, 64, 64)) * 0.5 if with_s0 else None
+    return [None if a is None else a.astype(np.float32)
+            for a in (r, k, v, w, u, s0)]
+
+
+def test_cpu_wkv_launches_no_kernel():
+    """On the CPU ``ops.wkv`` takes the plain version, and only there."""
+    r, k, v, w, u, _ = (None if a is None else torch.from_numpy(a)
+                        for a in _wkv_inputs(1, 2, 20))
+    before = k3.launches
+    y, s = ops.wkv(r, k, v, w, u)
+    y_ref, s_ref = ref.wkv6_ref(r, k, v, w, u)
+    torch.testing.assert_close(y, y_ref)
+    torch.testing.assert_close(s, s_ref)
+    assert k3.launches == before
+
+
+def test_wkv_wrapper_refuses_what_it_cannot_launch():
+    """K3's wrapper raises, launching nothing, on CPU tensors, on a
+    layout the kernel does not take, on other dtypes and shapes, and on a
+    chunk past its shared-memory tiles; ``ops.wkv`` sends a non-CPU
+    tensor to it."""
+    r, k, v, w, u, s0 = (torch.from_numpy(a) for a in
+                         _wkv_inputs(1, 2, 20, with_s0=True))
+    before = k3.launches
+    bad = [
+        ({}, "CUDA device"),
+        ({"k": k.transpose(1, 2).contiguous().transpose(1, 2)},
+         "share one layout"),
+        ({"r": r.bfloat16()}, "all float32 or all bfloat16"),
+        ({"w": w.bfloat16()}, "w is torch.bfloat16"),
+        ({"u": u[:1]}, "u is"),
+        ({"s0": s0.transpose(2, 3)}, "s0 is"),
+        ({"r": r[..., :32], "k": k[..., :32], "v": v[..., :32],
+          "w": w[..., :32]}, r"want \(B, H, S, 64\)"),
+        ({"chunk": 64}, "chunk 64"),
+    ]
+    for change, msg in bad:
+        kw = {"r": r, "k": k, "v": v, "w": w, "u": u, "s0": s0,
+              "chunk": 16} | change
+        with pytest.raises(ValueError, match=msg):
+            k3.wkv6(kw.pop("r"), kw.pop("k"), kw.pop("v"), kw.pop("w"),
+                    kw.pop("u"), kw.pop("s0"), **kw)
+    meta = torch.empty(1, 2, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        ops.wkv(meta, meta, meta, meta, torch.empty(2, 64, device="meta"))
+    assert k3.launches == before
+
+
 # ---------------------------------------------------------------------------
 # On the card: the CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -125,8 +183,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the port's kernels (K1 flash "
-                    "attention, K2 RG-LRU scan) are CUDA C++ for sm_90a "
-                    "and have no CPU mode")
+                    "attention, K2 RG-LRU scan, K3 RWKV-6 WKV) are CUDA "
+                    "C++ for sm_90a and have no CPU mode")
     return torch.device("cuda")
 
 
@@ -192,3 +250,55 @@ def test_scan_kernel_matches_plain(cuda, B, S, R, with_h0, dtype):
     want = ref.rglru_ref(at, bt, h0)
     torch.testing.assert_close(h, want, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(hf, want[:, -1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [16, 32])
+@pytest.mark.parametrize("B,H,S,dtype,with_s0", [
+    (1, 2, 64, "float32", False),         # tests/test_kernels.py's sweep
+    (2, 4, 128, "float32", False),
+    (1, 64, 23, "bfloat16", True),        # the serving path's prefill
+    (2, 4, 100, "float32", True),         # ragged S
+])
+def test_wkv_kernel_matches_plain(cuda, B, H, S, dtype, with_s0, chunk):
+    """K3 against its plain version at tests/test_kernels.py's 1e-4 (f32
+    math both; bf16 r, k, v are read as f32)."""
+    r, k, v, w, u, s0 = (None if a is None else torch.from_numpy(a).to(cuda)
+                         for a in _wkv_inputs(B, H, S, seed=S,
+                                              with_s0=with_s0))
+    r, k, v = (t.to(DTYPES[dtype]) for t in (r, k, v))
+    before = k3.launches
+    y, s = ops.wkv(r, k, v, w, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert k3.launches == before + 1
+    y_ref, s_ref = ref.wkv6_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, s_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_wkv_kernel_takes_the_models_layout(cuda):
+    """The model hands K3 head-transposed views of (B, S, H, N)
+    projections; the kernel reads them through their strides."""
+    B, S, H = 2, 40, 4
+    r, k, v, w, u, _ = (None if a is None else torch.from_numpy(a).to(cuda)
+                        for a in _wkv_inputs(B, H, S, seed=5))
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (r, k, v, w)]
+    assert not views[0].is_contiguous()
+    y, s = ops.wkv(*views, u)
+    y_ref, s_ref = ref.wkv6_ref(r, k, v, w, u)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(s, s_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_wkv_kernel_extreme_decay(cuda):
+    """w = 1e-6 everywhere: the clamp keeps every output finite."""
+    r, k, v, _, u, _ = (None if a is None else torch.from_numpy(a).to(cuda)
+                        for a in _wkv_inputs(1, 1, 64, seed=6))
+    w = torch.full_like(r, 1e-6)
+    y, s = ops.wkv(r, k, v, w, u)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    y_ref, _ = ref.wkv6_ref(r, k, v, w, u)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)

@@ -234,3 +234,73 @@ def test_serve_launcher_recurrent_on_cpu():
     result = serve(cfg, requests=5, max_batch=2, max_new=4, device="cpu")
     assert all(r.done and len(r.output) == 4 for r in result["requests"])
     assert result["engine"].prefills == 5
+
+
+# ---------------------------------------------------------------------------
+# rwkv6-7b: exact-length prefill through the WKV, states in the slots
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH = "rwkv6-7b"
+#: prompts of 3–8 tokens; the first tick admits more than one request, so
+#: prefills scatter their float32 shift states into the bfloat16 slots of
+#: a fresh cache, and later admissions into the float32 ones a decode
+#: step left (ROADMAP §3)
+RWKV_PROMPTS = {
+    "mixed": ([[1, 2, 3], [4, 5, 6, 7, 8], [9, 10, 11], [12, 13, 14, 15]],
+              4, 2),
+    "long": ([[5, 9, 2, 7, 11, 3, 8], [21, 22, 23], [30, 31, 32, 33, 34, 35],
+              [40, 41, 42, 43, 44, 45, 46, 47]], 12, 4),
+}
+
+
+@pytest.fixture(scope="module")
+def rwkv_models():
+    jcfg = jax_smoke_config(RWKV_ARCH).replace(param_dtype="float32")
+    cfg = get_smoke_config(RWKV_ARCH).replace(param_dtype="float32")
+    assert not cfg.tie_embeddings
+    jparams = j_init(jax.random.PRNGKey(0), jcfg)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                              device="cpu")
+    return (jcfg, jparams), (cfg, tparams)
+
+
+@pytest.mark.parametrize("case", list(RWKV_PROMPTS))
+def test_rwkv_engine_matches_reference(rwkv_models, case):
+    prompts, max_new, max_batch = RWKV_PROMPTS[case]
+    jside, tside = rwkv_models
+    want = _run(jside, JServingEngine, JRequest, JAutoScaler, prompts,
+                max_new, max_batch)
+    got = _run(tside, ServingEngine, Request, AutoScaler, prompts,
+               max_new, max_batch, device="cpu")
+    assert got[0] == want[0]                      # greedy tokens
+    assert [k[0] for k in got[1]] == [k[0] for k in want[1]]
+    assert got[1] == want[1]                      # ids, costs, times
+    assert got[2] == want[2]                      # AutoScaler Δ trace
+    assert got[3] == want[3]
+    assert all(len(o) == max_new for o in got[0])
+    assert any(len(set(o)) > 1 for o in got[0])  # not a repeated token
+
+
+def test_rwkv_engine_keeps_the_reference_shift_dtypes(rwkv_models):
+    """Two requests admitted in the first tick land in the fresh bfloat16
+    shift slots; after the decode step the engine holds the float32 shift
+    states the model returned."""
+    _, (cfg, params) = rwkv_models
+    engine = ServingEngine(cfg, params, max_batch=2, max_len=64,
+                           device="cpu")
+    assert not engine._bucketing
+    for p in ([3, 1, 4], [1, 5, 9, 2]):
+        engine.submit(Request(prompt=p, max_new_tokens=3))
+    engine._admit()
+    assert engine.prefills == 2
+    assert engine.cache[0]["shift_t"].dtype == torch.bfloat16
+    engine.tick()
+    assert all(c[name].dtype == torch.float32 for c in engine.cache
+               for name in c)
+
+
+def test_serve_launcher_rwkv_on_cpu():
+    cfg = get_smoke_config(RWKV_ARCH)
+    result = serve(cfg, requests=5, max_batch=2, max_new=4, device="cpu")
+    assert all(r.done and len(r.output) == 4 for r in result["requests"])
+    assert result["engine"].prefills == 5
