@@ -9,12 +9,18 @@ and no result line is printed):
 1. build — print the card's name and power limit, compile the three
    kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for
    ``sm_90a`` (one ``nvcc`` per source, started together), print the
-   build seconds and what ``ptxas -v`` says of registers and spills;
+   build seconds and what ``ptxas -v`` says of registers and spills,
+   K1's dynamic shared memory a block, and the ``HGMMA`` (tensor-core
+   ``wgmma``) instructions ``cuobjdump -sass`` finds in each kernel; K1's
+   bf16 kernels must have some;
 2. kernels against their plain versions on the card —
    K1 (flash attention) against ``ref.attention_ref`` at the serving
    paths' shapes (llama3.2-1b D=64, recurrentgemma-2b MQA D=256 with its
-   window) and at prefill, MQA/f32, window, softcap and ragged shapes,
-   within ``tests/test_kernels.py``'s tolerance (bf16 2e-2, f32 2e-5);
+   window), at prefill, MQA/f32, window, softcap and ragged shapes, and
+   at the bf16 kernel's tile edges (S from 1 to 2048 around its 64- and
+   128-row tiles at D=64, 128 and 256; windows of 64 and 100; softcap;
+   B=2; G=1, 4 and 10), within ``tests/test_kernels.py``'s tolerance
+   (bf16 2e-2, f32 2e-5);
    K2 (the RG-LRU scan) against ``ref.rglru_ref`` at 1e-5 over
    ``tests/test_kernels.py``'s sweep, the serving shapes, S=2048 and an
    ``h0`` continuation;
@@ -24,7 +30,8 @@ and no result line is printed):
    S, a continuation through ``s_final`` and extreme decay;
 3. times — each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (a yardstick only: the port
-   never calls it), beside the kernel's bound;
+   never calls it), beside the kernel's bound; for K1 also its achieved
+   TFLOP/s and its share of the bound;
 4. serve llama3.2-1b — full width (bf16, seeded random weights) through
    ``repro_torch.launch.serve``: 8 requests, max batch 4, 16 new tokens,
    policy ``prediction``; K1 must have launched 16 × prefills;
@@ -33,7 +40,9 @@ and no result line is printed):
 6. serve rwkv6-7b — the same at its full width (7.58 B parameters); K3
    must have launched 32 × prefills.  For each model a small float32 one
    must give the same logits and greedy tokens on the card as the plain
-   path on the CPU.
+   path on the CPU; for llama3.2-1b and recurrentgemma-2b a small bf16
+   one (K1 on the tensor cores) must give logits within 2e-2 of the
+   logits' scale of the CPU's.
 
 The launch counts of each serving path are set to 0 just before it and
 read just after; a kernel that the path does not run must show 0.  The
@@ -166,7 +175,7 @@ def time_ms(torch, fn, iters: int) -> float:
 # -- 1. build ------------------------------------------------------------------
 
 
-def build(kernels) -> None:
+def build(torch, kernels, fa) -> None:
     from repro_torch.kernels import _build
 
     def timed(mod):
@@ -180,6 +189,17 @@ def build(kernels) -> None:
         print(f"[build] {lib.name} in {secs:.1f} s")
         for line in _build.ptxas_report(mod._SOURCE):
             print(f"[ptxas] {line}")
+    for D in (64, 128, 256):
+        print(f"[smem] K1 D={D}: "
+              + ", ".join(f"{dt}: {fa.smem_bytes(D, dt)} B"
+                          for dt in (torch.bfloat16, torch.float32))
+              + " of dynamic shared memory a block")
+    hgmma = _build.sass_counts(fa._SOURCE, "HGMMA")
+    for name, n in hgmma.items():
+        print(f"[sass] {name}: {n} HGMMA")
+    tc = [n for name, n in hgmma.items() if "flash_attention_tc" in name]
+    check(len(tc) == 3 and all(n > 0 for n in tc),
+          f"K1's bf16 kernels hold no HGMMA instruction: {hgmma}")
 
 
 # -- 2. kernels against their plain versions -------------------------------------
@@ -202,6 +222,23 @@ def check_attention(torch, fa, ref) -> float:
         ("D=256 S=2048", 1, 2048, 10, 1, 256, bf16, 2048, None, 1.0),
         ("D=256 window 128", 1, 512, 10, 1, 256, bf16, 128, None, 1.0),
     ]
+    # the bf16 kernel's tile edges: 64-row warpgroups, 128-row blocks at
+    # D=64 and 128, 64- and 128-key tiles
+    for D, H, KV in ((64, 32, 8), (128, 8, 2), (256, 10, 1)):
+        cases += [(f"edge D={D} S={S}", 1, S, H, KV, D, bf16, None, None, 1.0)
+                  for S in (1, 63, 64, 65, 127, 128, 129, 2048)]
+    cases += [
+        ("window 64 D=64", 1, 300, 32, 8, 64, bf16, 64, None, 1.0),
+        ("window 100 D=64", 1, 300, 32, 8, 64, bf16, 100, None, 1.0),
+        ("window 64 D=256", 1, 300, 10, 1, 256, bf16, 64, None, 1.0),
+        ("window 100 D=256", 1, 300, 10, 1, 256, bf16, 100, None, 1.0),
+        ("softcap 20 D=128", 1, 300, 8, 2, 128, bf16, None, 20.0, 3.0),
+        ("B=2 D=64", 2, 129, 32, 8, 64, bf16, None, None, 1.0),
+        ("B=2 D=256", 2, 200, 10, 1, 256, bf16, 2048, None, 1.0),
+        ("G=1 D=64", 1, 200, 8, 8, 64, bf16, None, None, 1.0),
+        ("G=4 D=128", 1, 200, 8, 2, 128, bf16, None, None, 1.0),
+        ("G=10 D=128", 1, 200, 20, 2, 128, bf16, None, None, 1.0),
+    ]
     main_err = 0.0
     for i, (name, B, S, H, KV, D, dt, window, softcap, sc) in \
             enumerate(cases):
@@ -216,7 +253,7 @@ def check_attention(torch, fa, ref) -> float:
         err = (o.float() - o_ref.float()).abs().max().item()
         tol = TOL[str(dt).removeprefix("torch.")]
         ok = torch.allclose(o.float(), o_ref.float(), rtol=tol, atol=tol)
-        print(f"[check] K1 {name:17s} {str(dt):15s} max|err| {err:.3e} "
+        print(f"[check] K1 {name:18s} {str(dt):15s} max|err| {err:.3e} "
               f"(rtol=atol={tol:g}) {'ok' if ok else 'FAIL'}")
         check(ok, f"K1 {name}: kernel disagrees with its plain version")
         if name.startswith("serve"):
@@ -383,6 +420,11 @@ def time_attention(torch, fa, ref, B, S, H, KV, D, window=None) -> dict:
     print(f"[time] K1 {row['shape']}: kernel {row['ms']:.5f} ms, plain "
           f"{row['plain_ms']:.5f} ms, sdpa {row['library_ms']:.5f} ms, "
           f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+    w = S if window is None else min(window, S)
+    flops = 4 * B * H * D * sum(min(i + 1, w) for i in range(S))
+    print(f"[time] K1 {row['shape']}: {flops / row['ms'] / 1e9:.2f} TFLOP/s "
+          f"achieved (sdpa {flops / row['library_ms'] / 1e9:.2f}), "
+          f"{row['bound_ms'] / row['ms']:.4f} of the bound")
     return row
 
 
@@ -534,6 +576,39 @@ def small_model_on_card_and_cpu(torch, arch: str, tag: str,
                               "card and CPU")
 
 
+def small_bf16_model_on_card_and_cpu(torch, fa, arch: str, tag: str,
+                                     **overrides) -> None:
+    """A small bf16 model: the card (K1 on the tensor cores) against the
+    CPU (plain versions), logits within 2e-2 of the logits' scale, as
+    tests/test_torch_model.py holds bf16.  Greedy tokens are not compared:
+    bf16 rounds differently on the two devices and near-ties flip."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import forward, init_params
+
+    small = get_smoke_config(arch).replace(param_dtype="bfloat16",
+                                           **overrides)
+    cpu_model = init_params(small, torch.Generator().manual_seed(0),
+                            device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    toks = torch.randint(0, small.vocab, (2, 24),
+                         generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        l_cpu, _ = forward(cpu_model, toks, small)
+        fa.launches = 0
+        l_gpu, _ = forward(gpu_model, toks.cuda(), small)
+        torch.cuda.synchronize()
+    launched = fa.launches
+    want = l_cpu.float()
+    err = (l_gpu.cpu().float() - want).abs().max().item()
+    scale = want.abs().max().item()
+    print(f"[{tag}] small bf16 model logits, card vs CPU: max|err| "
+          f"{err:.3e} (2e-2 of the logits' scale {scale:.3f}: "
+          f"{2e-2 * scale:.3e}); K1 launches {launched}")
+    check(launched > 0, f"{arch}: the bf16 model did not run K1")
+    check(bool(torch.isfinite(l_gpu).all()) and err <= 2e-2 * scale,
+          f"{arch}: small bf16 model logits differ between card and CPU")
+
+
 def main() -> int:
     import torch
 
@@ -555,7 +630,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; TF32 off for matmul and cuDNN")
 
-    build([fa, k2, k3])
+    build(torch, [fa, k2, k3], fa)
     fa_err = check_attention(torch, fa, ref)
     k2_err = check_scan(torch, k2, ref)
     k3_err = check_wkv(torch, k3, ref)
@@ -576,6 +651,9 @@ def main() -> int:
     small_model_on_card_and_cpu(
         torch, "llama3.2-1b", "serve llama3.2-1b", d_model=256, n_heads=4,
         kv_heads=2, head_dim=64, d_ff=512)
+    small_bf16_model_on_card_and_cpu(
+        torch, fa, "llama3.2-1b", "serve llama3.2-1b", d_model=256,
+        n_heads=4, kv_heads=2, head_dim=64, d_ff=512)
     rgemma = serve_full_width(torch, "recurrentgemma-2b", kernels,
                               {"flash_attention": 8, "rglru_scan": 18,
                                "wkv6": 0}, "serve recurrentgemma-2b")
@@ -585,6 +663,10 @@ def main() -> int:
         torch, "recurrentgemma-2b", "serve recurrentgemma-2b", d_model=256,
         n_heads=4, kv_heads=1, head_dim=64, d_ff=512, rnn_width=256,
         tie_embeddings=False)
+    small_bf16_model_on_card_and_cpu(
+        torch, fa, "recurrentgemma-2b", "serve recurrentgemma-2b",
+        d_model=256, n_heads=4, kv_heads=1, head_dim=64, d_ff=512,
+        rnn_width=256, tie_embeddings=False)
     rwkv = serve_full_width(torch, "rwkv6-7b", kernels,
                             {"flash_attention": 0, "rglru_scan": 0,
                              "wkv6": 32}, "serve rwkv6-7b")

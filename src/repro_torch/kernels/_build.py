@@ -5,7 +5,8 @@ Every kernel of the port is compiled the same way: ``nvcc`` for
 use, into ``build/`` at the repository root, named by the source's
 content hash, and loaded with ``ctypes``.  ``ptxas -v`` runs with every
 build; its report (registers, shared memory, spills) is kept beside the
-library as ``<name>.log``.
+library as ``<name>.log``; :func:`sass_counts` counts an opcode in each
+kernel's machine code with ``cuobjdump``.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["build", "function", "ptxas_report"]
+__all__ = ["build", "function", "ptxas_report", "sass_counts"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 
@@ -93,3 +94,24 @@ def ptxas_report(source: Path) -> list[str]:
                        f"{spills}")
             entry = None
     return out
+
+
+def sass_counts(source: Path, opcode: str) -> dict[str, int]:
+    """How many instructions of ``opcode`` (e.g. ``HGMMA``, the tensor
+    cores' warpgroup product) each kernel in ``source``'s library holds,
+    from ``cuobjdump -sass`` beside ``nvcc``."""
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    if not cuobjdump.exists():
+        raise RuntimeError(f"{cuobjdump} not found: it ships with nvcc")
+    proc = subprocess.run([str(cuobjdump), "-sass", str(build(source))],
+                          capture_output=True, text=True, check=True)
+    counts: dict[str, int] = {}
+    entry = None
+    for line in proc.stdout.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            entry = line.split(":", 1)[1].strip()
+            counts[entry] = 0
+        elif entry is not None and f" {opcode}." in line:
+            counts[entry] += 1
+    return counts

@@ -3,7 +3,9 @@ written by hand for Hopper — the port of the TPU kernel in
 :mod:`repro.kernels.flash_attention`.
 
 The source is ``csrc/flash_attention.cu``; its header states the bound
-on the card and what the design does about it.  It is compiled with
+on the card and what the design does about it.  bfloat16 runs on the
+tensor cores (``wgmma``, K/V tiles by TMA); float32 runs a scalar
+kernel, chosen by dtype.  It is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C entry point
 at first use, into ``build/`` at the repository root, and loaded with
 ``ctypes`` (:mod:`._build`).  The plain version of the same function is
@@ -23,7 +25,7 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "build"]
+__all__ = ["flash_attention", "build", "smem_bytes"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,6 +42,14 @@ def build() -> Path:
     """Compile ``csrc/flash_attention.cu`` (once per source content) and
     return the shared library's path (:func:`._build.build`)."""
     return _build.build(_SOURCE)
+
+
+def smem_bytes(D: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory a block of the kernel for head_dim ``D`` and
+    ``dtype`` takes, as the library reports it."""
+    fn = _build.function(_SOURCE, "repro_flash_attention_smem_bytes",
+                         [ctypes.c_int, ctypes.c_int])
+    return fn(D, _DTYPES[dtype])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -81,6 +91,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: window {window} < 1")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"flash_attention: softcap {softcap} <= 0")
+    if q.dtype == torch.bfloat16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {name} is not 16-byte "
+                                 "aligned, which the bf16 kernel's TMA "
+                                 "loads need")
     fn = _build.function(_SOURCE, "repro_flash_attention_fwd", _ARGTYPES)
     o = torch.empty_like(q)
     if o.numel() == 0:

@@ -27,8 +27,8 @@ from ..models import init_params
 from .serve import serve
 
 #: kernels of this package, by the name of their CUDA function
-PORT_KERNELS = ("flash_attention_kernel", "rglru_scan_kernel",
-                "wkv6_kernel")
+PORT_KERNELS = ("flash_attention_tc", "flash_attention_f32",
+                "rglru_scan_kernel", "wkv6_kernel")
 
 
 def _device_us(evt) -> float:

@@ -4,7 +4,8 @@ against ``repro.kernels.ref.attention_ref`` and against the Pallas kernel
 in interpret mode, over the sweep of ``tests/test_kernels.py`` with its
 tolerances.  The CUDA kernels themselves (K1 flash attention, K2 the
 RG-LRU scan, K3 the RWKV-6 WKV) are held against their plain versions in
-the ``gpu``-marked tests, which need a card.  JAX is imported inside the
+the ``gpu``-marked tests, which need a card; K1's bf16 kernel (the
+tensor cores) also at the S values around its tiles.  JAX is imported inside the
 CPU tests only: the machine with the card has none."""
 
 import numpy as np
@@ -101,6 +102,50 @@ def test_attention_ragged(window, softcap, dtype):
     o = ops.attention(qt, kt, vt, window=window, softcap=softcap)
     _assert_close(o, _reference("ref", qj, kj, vj, window=window,
                                 softcap=softcap), _tol(dtype))
+
+
+#: S on each side of the bf16 kernel's tile edges: 64 query rows a
+#: warpgroup, 128 a block at D=64 and 128, 64- or 128-key tiles
+TILE_EDGES = [1, 63, 64, 65, 127, 128, 129, 2048]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("S", TILE_EDGES)
+def test_attention_tile_edges(S, dtype):
+    """The plain version that the card's tests trust, at the S values
+    around the kernel's tiles, against the JAX reference."""
+    (qj, kj, vj), (qt, kt, vt) = _both(_inputs(1, S, 4, 1, 64, seed=S),
+                                       dtype)
+    o = ops.attention(qt, kt, vt)
+    assert o.shape == (1, S, 4, 64)
+    _assert_close(o, _reference("ref", qj, kj, vj), _tol(dtype))
+
+
+@pytest.mark.parametrize("D", [64, 256])
+@pytest.mark.parametrize("window", [64, 100])
+def test_attention_window_crosses_tiles(window, D):
+    """Windows of 64 (a tile) and 100 (across tile edges), bf16."""
+    (qj, kj, vj), (qt, kt, vt) = _both(_inputs(1, 300, 4, 1, D, seed=D),
+                                       "bfloat16")
+    o = ops.attention(qt, kt, vt, window=window)
+    _assert_close(o, _reference("ref", qj, kj, vj, window=window),
+                  _tol("bfloat16"))
+
+
+def test_attention_softcap_head_dim_128():
+    (qj, kj, vj), (qt, kt, vt) = _both(
+        _inputs(1, 300, 4, 2, 128, seed=7, scale=3.0), "bfloat16")
+    o = ops.attention(qt, kt, vt, softcap=20.0)
+    _assert_close(o, _reference("ref", qj, kj, vj, softcap=20.0),
+                  _tol("bfloat16"))
+
+
+@pytest.mark.parametrize("H,K", [(4, 4), (8, 2), (10, 1)])   # G = 1, 4, 10
+def test_attention_groups_batch_two(H, K):
+    (qj, kj, vj), (qt, kt, vt) = _both(_inputs(2, 129, H, K, 64, seed=H),
+                                       "bfloat16")
+    o = ops.attention(qt, kt, vt)
+    _assert_close(o, _reference("ref", qj, kj, vj), _tol("bfloat16"))
 
 
 def test_cpu_path_launches_no_kernel():
@@ -223,6 +268,69 @@ def test_kernel_head_dim_256(cuda, S, window):
     assert fa.launches == before + 1
     o_ref = ref.attention_ref(q, k, v, window=window)
     torch.testing.assert_close(o.float(), o_ref.float(), **_tol("bfloat16"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,H,K", [(64, 8, 2), (128, 8, 2), (256, 10, 1)])
+@pytest.mark.parametrize("S", TILE_EDGES)
+def test_kernel_tile_edges(cuda, S, D, H, K):
+    """The bf16 tensor-core kernel at S on each side of its tiles."""
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in _inputs(1, S, H, K, D, seed=S))
+    before = fa.launches
+    o = ops.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    o_ref = ref.attention_ref(q, k, v)
+    torch.testing.assert_close(o.float(), o_ref.float(), **_tol("bfloat16"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,K,D,window,softcap", [
+    (1, 300, 8, 2, 64, 64, None),         # windows across tile edges
+    (1, 300, 8, 2, 64, 100, None),
+    (1, 300, 10, 1, 256, 64, None),
+    (1, 300, 10, 1, 256, 100, None),
+    (1, 300, 8, 2, 128, None, 20.0),      # softcap
+    (2, 200, 8, 2, 64, None, None),       # B = 2
+    (2, 200, 10, 1, 256, 2048, None),
+    (1, 200, 8, 8, 64, None, None),       # G = 1
+    (1, 200, 8, 2, 128, None, None),      # G = 4
+    (1, 200, 20, 2, 128, None, None),     # G = 10
+])
+def test_kernel_bf16_bands(cuda, B, S, H, K, D, window, softcap):
+    q, k, v = (torch.from_numpy(a).to(cuda, torch.bfloat16)
+               for a in _inputs(B, S, H, K, D, seed=S + D,
+                                scale=3.0 if softcap else 1.0))
+    o = ops.attention(q, k, v, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    o_ref = ref.attention_ref(q, k, v, window=window, softcap=softcap)
+    torch.testing.assert_close(o.float(), o_ref.float(), **_tol("bfloat16"))
+
+
+@pytest.mark.gpu
+def test_bf16_kernel_runs_on_the_tensor_cores(cuda):
+    """Each bf16 instantiation holds wgmma (SASS ``HGMMA``) instructions;
+    the float32 one holds none."""
+    from repro_torch.kernels import _build
+    counts = _build.sass_counts(fa._SOURCE, "HGMMA")
+    tc = {n: c for n, c in counts.items() if "flash_attention_tc" in n}
+    f32 = {n: c for n, c in counts.items() if "flash_attention_f32" in n}
+    assert len(tc) == 3 and all(c > 0 for c in tc.values()), counts
+    assert len(f32) == 3 and not any(f32.values()), counts
+
+
+@pytest.mark.gpu
+def test_bf16_kernel_refuses_unaligned_inputs(cuda):
+    """TMA needs 16-byte aligned tensors: the wrapper raises, launching
+    nothing."""
+    q = torch.zeros(1 * 16 * 4 * 64 + 1, device=cuda,
+                    dtype=torch.bfloat16)[1:].view(1, 16, 4, 64)
+    k = torch.zeros(1, 16, 2, 64, device=cuda, dtype=torch.bfloat16)
+    before = fa.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(q, k, k)
+    assert fa.launches == before
 
 
 @pytest.mark.gpu
