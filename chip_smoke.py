@@ -10,9 +10,13 @@ and no result line is printed):
    kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for
    ``sm_90a`` (one ``nvcc`` per source, started together), print the
    build seconds and what ``ptxas -v`` says of registers and spills,
-   K1's dynamic shared memory a block, and the ``HGMMA`` (tensor-core
-   ``wgmma``) instructions ``cuobjdump -sass`` finds in each kernel; K1's
-   bf16 kernels must have some;
+   K1's dynamic shared memory a block, the ``HGMMA`` (tensor-core
+   ``wgmma``) instructions ``cuobjdump -sass`` finds in each K1 kernel
+   and the ``HMMA`` (``mma.sync``) ones in each K3 kernel, and K3's
+   thread block cluster as the runtime reports it (width, clusters that
+   fit at once, shared memory a block); K1's bf16 kernels and both K3
+   kernels must hold their tensor-core instructions, and K3 must run in
+   clusters;
 2. kernels against their plain versions on the card —
    K1 (flash attention) against ``ref.attention_ref`` at the serving
    paths' shapes (llama3.2-1b D=64, recurrentgemma-2b MQA D=256 with its
@@ -22,16 +26,23 @@ and no result line is printed):
    B=2; G=1, 4 and 10), within ``tests/test_kernels.py``'s tolerance
    (bf16 2e-2, f32 2e-5);
    K2 (the RG-LRU scan) against ``ref.rglru_ref`` at 1e-5 over
-   ``tests/test_kernels.py``'s sweep, the serving shapes, S=2048 and an
-   ``h0`` continuation;
+   ``tests/test_kernels.py``'s sweep, the serving shapes, S = 1, T−1, T,
+   T+1 and 2048 around its chunk T (the one-pass loop and the chunked
+   scan) with and without ``h0`` in float32 and bfloat16, and an ``h0``
+   continuation across a chunk;
    K3 (the chunked RWKV-6 WKV) against ``ref.wkv6_ref`` at 1e-4 over
-   ``tests/test_kernels.py``'s sweep at chunk 16 and 32, the serving
-   shapes (64 heads, bf16 r/k/v, a zero initial state), S=2048, a ragged
-   S, a continuation through ``s_final`` and extreme decay;
+   ``tests/test_kernels.py``'s sweep, the serving shapes (64 heads, bf16
+   r/k/v, a zero initial state), and in float32 and bfloat16: S = 1, 15,
+   16, 17, 31, 32, 33 and 2048, chunks 1, 16 and 32, B=2, the model's
+   strided layout, w = 1e-38, w = 1, half the channels at 1e-6 and half
+   at 0.999, a random s0 and a continuation (two halves against the
+   whole);
 3. times — each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (a yardstick only: the port
    never calls it), beside the kernel's bound; for K1 also its achieved
-   TFLOP/s and its share of the bound;
+   TFLOP/s and its share of the bound; for K2 and K3 also the device
+   time a launch from a replayed CUDA graph, since back-to-back calls at
+   the serving shape time the Python wrapper;
 4. serve llama3.2-1b — full width (bf16, seeded random weights) through
    ``repro_torch.launch.serve``: 8 requests, max batch 4, 16 new tokens,
    policy ``prediction``; K1 must have launched 16 × prefills;
@@ -65,8 +76,10 @@ from pathlib import Path
 #: and device-memory bytes/s
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
-#: float32 FLOP/s outside the tensor cores (the same data sheet)
+#: float32 FLOP/s outside the tensor cores, and TF32 FLOP/s on them (the
+#: same data sheet)
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 SCAN_TOL = 1e-5
 WKV_TOL = 1e-4
@@ -143,16 +156,42 @@ def wkv_bound(inputs, outputs) -> tuple[float, str]:
     """Least time on the card for the WKV, ms: the bytes of its inputs
     (r, k, v, w, u and s0 where one is passed) read once and its outputs
     (y, s_final) written once at the memory rate, or the recurrence's
-    float32 operations — y_t = r_t S + (r_t·(u⊙k_t)) v_t and S = w_t⊙S +
-    k_tᵀv_t, 5·N² + 5·N a token and head — at the float32 peak outside
-    the tensor cores, whichever is larger."""
+    operations — y_t = r_t S + (r_t·(u⊙k_t)) v_t and S = w_t⊙S + k_tᵀv_t,
+    5·N² + 5·N a token and head, of which the two products r_t S and
+    k_tᵀv_t (4·N²) at the TF32 tensor-core peak and the rest (N² + 5·N)
+    at the float32 peak outside the tensor cores — whichever is
+    larger."""
     r = inputs[0]
     B, H, S, N = r.shape
     bytes_s = sum(t.numel() * t.element_size()
                   for t in list(inputs) + list(outputs)) / PEAK_BYTES
-    ops_s = B * H * S * (5 * N * N + 5 * N) / PEAK_F32_FLOPS
+    ops_s = B * H * S * (4 * N * N / PEAK_TF32_FLOPS
+                         + (N * N + 5 * N) / PEAK_F32_FLOPS)
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s > bytes_s else "bytes")
+
+
+def device_ms(torch, fn, calls: int = 50, replays: int = 5) -> float:
+    """Device ms per call: ``calls`` calls captured in one CUDA graph,
+    replayed ``replays`` times between CUDA events, so the wrapper's host
+    time drops out and only the launches' device time is left."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -175,7 +214,7 @@ def time_ms(torch, fn, iters: int) -> float:
 # -- 1. build ------------------------------------------------------------------
 
 
-def build(torch, kernels, fa) -> None:
+def build(torch, kernels, fa, k3) -> None:
     from repro_torch.kernels import _build
 
     def timed(mod):
@@ -200,6 +239,23 @@ def build(torch, kernels, fa) -> None:
     tc = [n for name, n in hgmma.items() if "flash_attention_tc" in name]
     check(len(tc) == 3 and all(n > 0 for n in tc),
           f"K1's bf16 kernels hold no HGMMA instruction: {hgmma}")
+    # K3's products are mma.sync (SASS HMMA) in both instantiations, and
+    # it runs in thread block clusters of a head's 4 CTAs
+    hmma = {name: n for name, n in _build.sass_counts(k3._SOURCE,
+                                                      "HMMA").items()
+            if "wkv6_kernel" in name}
+    for name, n in hmma.items():
+        print(f"[sass] {name}: {n} HMMA")
+    check(len(hmma) == 2 and all(n > 0 for n in hmma.values()),
+          f"K3's kernels hold no HMMA instruction: {hmma}")
+    for dt in (torch.float32, torch.bfloat16):
+        info = k3.cluster_info(dt)
+        print(f"[cluster] K3 {dt}: cluster width {info['cluster_width']}, "
+              f"{info['max_active_clusters']} clusters fit on the card at "
+              f"once, {info['smem_bytes']} B of dynamic shared memory a "
+              "block")
+        check(info["cluster_width"] > 1 and info["max_active_clusters"] > 0,
+              f"K3 {dt}: cluster launch shape {info}")
 
 
 # -- 2. kernels against their plain versions -------------------------------------
@@ -261,20 +317,44 @@ def check_attention(torch, fa, ref) -> float:
     return main_err
 
 
+def _held(torch, tag, name, dt, got, want, tol, failed) -> float:
+    """Print one comparison of kernel outputs with their plain versions
+    at rtol = atol = ``tol``; note a failure.  Returns the max |err|."""
+    err = max((g - w).abs().max().item() if g.numel() else 0.0
+              for g, w in zip(got, want))
+    ok = all(g.shape == w.shape and g.dtype == torch.float32
+             and bool(torch.isfinite(g).all())
+             and torch.allclose(g, w, rtol=tol, atol=tol)
+             for g, w in zip(got, want))
+    print(f"[check] {tag} {name:24s} {str(dt):15s} max|err| {err:.3e} "
+          f"(rtol=atol={tol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failed.append(f"{tag} {name} {dt}")
+    return err
+
+
 def check_scan(torch, k2, ref) -> float:
-    """K2 against its plain version; returns the largest error at the
-    serving path's shapes."""
+    """K2 against its plain version, in float32 and bfloat16: the
+    tests/test_kernels.py sweep, the serving shapes, S around the chunked
+    scan's chunk T (1, T−1, T, T+1, 2048: the one-pass loop up to T, the
+    three passes past it) with and without h0, and an h0 continuation.
+    Returns the largest error at the serving path's shapes."""
+    T = k2.chunk()
     cases = [  # name, B, S, R, with h0, dtype
         ("sweep 1x128x256", 1, 128, 256, False, torch.float32),
         ("sweep 2x256x512", 2, 256, 512, False, torch.float32),
         ("sweep 1x64x1024", 1, 64, 1024, False, torch.float32),
         ("serve S=4", 1, 4, 2560, False, torch.float32),
         ("serve S=23", 1, 23, 2560, False, torch.float32),
-        ("prefill S=2048", 1, 2048, 2560, False, torch.float32),
         ("h0 S=23", 1, 23, 2560, True, torch.float32),
-        ("bf16 in, ragged", 2, 1000, 300, True, torch.bfloat16),
+        ("ragged B=2", 2, 1000, 300, True, torch.bfloat16),
     ]
-    main_err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for S in (1, T - 1, T, T + 1, 2048):
+            for with_h0 in (False, True):
+                cases.append((f"edge S={S}" + (" h0" if with_h0 else ""), 1,
+                              S, 2560, with_h0, dt))
+    main_err, failed = 0.0, []
     for i, (name, B, S, R, with_h0, dt) in enumerate(cases):
         a, b, h0 = scan_inputs(torch, B, S, R, seed=100 + i)
         a, b = a.to(dt), b.to(dt)
@@ -282,50 +362,53 @@ def check_scan(torch, k2, ref) -> float:
         h, hf = k2.rglru_scan(a, b, h0)
         torch.cuda.synchronize()
         want = ref.rglru_ref(a, b, h0)
-        check(h.shape == want.shape and h.dtype == torch.float32
-              and hf.shape == (B, R), f"K2 {name}: kernel gave "
-              f"{h.dtype} {tuple(h.shape)}, {tuple(hf.shape)}")
-        err = max((h - want).abs().max().item(),
-                  (hf - want[:, -1]).abs().max().item())
-        ok = (torch.allclose(h, want, rtol=SCAN_TOL, atol=SCAN_TOL)
-              and torch.allclose(hf, want[:, -1], rtol=SCAN_TOL,
-                                 atol=SCAN_TOL))
-        print(f"[check] K2 {name:17s} {str(dt):15s} max|err| {err:.3e} "
-              f"(rtol=atol={SCAN_TOL:g}) {'ok' if ok else 'FAIL'}")
-        check(ok, f"K2 {name}: kernel disagrees with its plain version")
+        err = _held(torch, "K2", name, dt, (h, hf), (want, want[:, -1]),
+                    SCAN_TOL, failed)
         if name.startswith("serve"):
             main_err = max(main_err, err)
     # continuation: two halves, the second from the first's final state
-    a, b, h0 = scan_inputs(torch, 2, 64, 2560, seed=200)
+    a, b, h0 = scan_inputs(torch, 2, 2 * T + 6, 2560, seed=200)
     whole, wf = k2.rglru_scan(a, b, h0)
-    h1, f1 = k2.rglru_scan(a[:, :32].contiguous(), b[:, :32].contiguous(),
-                           h0)
-    h2, f2 = k2.rglru_scan(a[:, 32:].contiguous(), b[:, 32:].contiguous(),
-                           f1)
+    half = T + 3
+    h1, f1 = k2.rglru_scan(a[:, :half].contiguous(),
+                           b[:, :half].contiguous(), h0)
+    h2, f2 = k2.rglru_scan(a[:, half:].contiguous(),
+                           b[:, half:].contiguous(), f1)
     torch.cuda.synchronize()
-    err = max((torch.cat([h1, h2], 1) - whole).abs().max().item(),
-              (f2 - wf).abs().max().item())
-    print(f"[check] K2 h0 continuation: two halves vs whole max|err| "
-          f"{err:.3e} ({SCAN_TOL:g})")
-    check(err <= SCAN_TOL, "K2: two halves differ from the whole")
+    _held(torch, "K2", "h0 continuation", torch.float32,
+          (torch.cat([h1, h2], 1), f2), (whole, wf), SCAN_TOL, failed)
+    check(not failed, f"K2 disagrees with its plain version: {failed}")
     return main_err
 
 
 def check_wkv(torch, k3, ref) -> float:
-    """K3 against its plain version; returns the largest error at the
-    serving path's shapes."""
-    bf16 = torch.bfloat16
+    """K3 against its plain version at 1e-4, in float32 and bfloat16 r/k/v:
+    the tests/test_kernels.py sweep, S = 1, 15, 16, 17, 31, 32, 33 and 2048
+    around the chunk, chunks 1, 16 and 32, B=2, the serving shapes (64
+    heads, a zero initial state), the model's strided layout, extreme and
+    mixed decays, a random s0 and a continuation (two halves against the
+    whole).  Returns the largest error at the serving path's shapes."""
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # name, B, H, S, chunk, r/k/v dtype, initial state
-        ("sweep 1x2x64 c16", 1, 2, 64, 16, None, None),
-        ("sweep 1x2x64 c32", 1, 2, 64, 32, None, None),
-        ("sweep 2x4x128 c16", 2, 4, 128, 16, None, None),
-        ("sweep 2x4x128 c32", 2, 4, 128, 32, None, None),
+        ("sweep 1x2x64 c16", 1, 2, 64, 16, f32, None),
+        ("sweep 1x2x64 c32", 1, 2, 64, 32, f32, None),
+        ("sweep 2x4x128 c16", 2, 4, 128, 16, f32, None),
+        ("sweep 2x4x128 c32", 2, 4, 128, 32, f32, None),
         ("serve S=4", 1, 64, 4, 16, bf16, "zero"),
         ("serve S=23", 1, 64, 23, 16, bf16, "zero"),
-        ("prefill S=2048", 1, 64, 2048, 16, bf16, None),
-        ("ragged S=100, s0", 2, 4, 100, 16, None, "random"),
     ]
-    main_err = 0.0
+    for dt in (f32, bf16):
+        cases += [(f"S={S} c16", 1, 4, S, 16, dt, None)
+                  for S in (1, 15, 16, 17, 31, 32, 33)]
+        cases += [(f"S={S} c1", 1, 4, S, 1, dt, "random")
+                  for S in (1, 17, 33)]
+        cases += [(f"S={S} c32", 1, 4, S, 32, dt, "random")
+                  for S in (31, 32, 33)]
+        cases += [("B=2 S=100 s0", 2, 4, 100, 16, dt, "random"),
+                  ("S=2048 c16", 1, 64, 2048, 16, dt, None),
+                  ("S=2048 c32 s0", 1, 8, 2048, 32, dt, "random"),
+                  ("S=2048 c1", 1, 2, 2048, 1, dt, None)]
+    main_err, failed = 0.0, []
     for i, (name, B, H, S, chunk, dt, init) in enumerate(cases):
         r, k, v, w, u, s0 = wkv_inputs(torch, B, H, S, seed=300 + i,
                                        rkv_dtype=dt)
@@ -333,47 +416,51 @@ def check_wkv(torch, k3, ref) -> float:
               "random": s0}[init]
         y, sf = k3.wkv6(r, k, v, w, u, s0, chunk=chunk)
         torch.cuda.synchronize()
-        y_ref, s_ref = ref.wkv6_ref(r, k, v, w, u, s0)
-        check(y.shape == y_ref.shape and y.dtype == torch.float32
-              and sf.shape == (B, H, 64, 64), f"K3 {name}: kernel gave "
-              f"{y.dtype} {tuple(y.shape)}, {tuple(sf.shape)}")
-        err = max((y - y_ref).abs().max().item(),
-                  (sf - s_ref).abs().max().item())
-        ok = (torch.allclose(y, y_ref, rtol=WKV_TOL, atol=WKV_TOL)
-              and torch.allclose(sf, s_ref, rtol=WKV_TOL, atol=WKV_TOL))
-        print(f"[check] K3 {name:17s} {str(r.dtype):15s} max|err| "
-              f"{err:.3e} (rtol=atol={WKV_TOL:g}) {'ok' if ok else 'FAIL'}")
-        check(ok, f"K3 {name}: kernel disagrees with its plain version")
+        want = ref.wkv6_ref(r, k, v, w, u, s0)
+        err = _held(torch, "K3", name, r.dtype, (y, sf), want, WKV_TOL,
+                    failed)
         if name.startswith("serve"):
             main_err = max(main_err, err)
-    # continuation: two halves, the second from the first's final state
-    r, k, v, w, u, s0 = wkv_inputs(torch, 1, 64, 128, seed=400)
-    whole, s_whole = k3.wkv6(r, k, v, w, u, s0)
-    halves = [tuple(t[:, :, sl].contiguous() for t in (r, k, v, w))
-              for sl in (slice(0, 64), slice(64, None))]
-    y1, s1 = k3.wkv6(*halves[0], u, s0)
-    y2, s2 = k3.wkv6(*halves[1], u, s1)
-    torch.cuda.synchronize()
-    err = max((torch.cat([y1, y2], 2) - whole).abs().max().item(),
-              (s2 - s_whole).abs().max().item())
-    print(f"[check] K3 continuation: two halves vs whole max|err| "
-          f"{err:.3e} ({WKV_TOL:g})")
-    check(torch.allclose(torch.cat([y1, y2], 2), whole, rtol=WKV_TOL,
-                         atol=WKV_TOL)
-          and torch.allclose(s2, s_whole, rtol=WKV_TOL, atol=WKV_TOL),
-          "K3: two halves differ from the whole")
-    # extreme decay: w = 1e-6 everywhere must stay finite (the clamp)
-    r, k, v, _, u, _ = wkv_inputs(torch, 1, 4, 64, seed=401)
-    w = torch.full_like(r, 1e-6)
-    y, sf = k3.wkv6(r, k, v, w, u)
-    torch.cuda.synchronize()
-    y_ref, _ = ref.wkv6_ref(r, k, v, w, u)
-    finite = bool(torch.isfinite(y).all() and torch.isfinite(sf).all())
-    err = (y - y_ref).abs().max().item()
-    print(f"[check] K3 extreme decay w=1e-6: finite {finite}, max|err| "
-          f"{err:.3e} ({WKV_TOL:g})")
-    check(finite and torch.allclose(y, y_ref, rtol=WKV_TOL, atol=WKV_TOL),
-          "K3: extreme decay is not finite or disagrees")
+    for j, dt in enumerate((f32, bf16)):
+        # the model's layout: head-transposed views of (B, S, H, N)
+        r, k, v, w, u, s0 = wkv_inputs(torch, 2, 4, 40, seed=500 + j,
+                                       rkv_dtype=dt)
+        views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+                 for t in (r, k, v, w)]
+        check(not views[0].is_contiguous(), "the strided case is contiguous")
+        got = k3.wkv6(*views, u, s0)
+        torch.cuda.synchronize()
+        _held(torch, "K3", "model's strided layout", dt, got,
+              ref.wkv6_ref(r, k, v, w, u, s0), WKV_TOL, failed)
+        # decays at the clamp's edges: w = 1e-38 (clipped before the log)
+        # and w = 1 everywhere; half the channels at 1e-6, half at 0.999
+        r, k, v, w, u, s0 = wkv_inputs(torch, 1, 4, 100, seed=510 + j,
+                                       rkv_dtype=dt)
+        mixed = torch.where(torch.arange(64, device="cuda") < 32,
+                            1e-6, 0.999).expand_as(w).contiguous()
+        for name, wx in (("w=1e-38", torch.full_like(w, 1e-38)),
+                         ("w=1", torch.ones_like(w)),
+                         ("w=1e-6 | 0.999", mixed)):
+            got = k3.wkv6(r, k, v, wx, u, s0)
+            torch.cuda.synchronize()
+            _held(torch, "K3", name, dt, got, ref.wkv6_ref(r, k, v, wx, u, s0),
+                  WKV_TOL, failed)
+        # continuation from a random s0: two halves (the first ending
+        # mid-chunk) against the whole, and the whole against the plain
+        # version
+        r, k, v, w, u, s0 = wkv_inputs(torch, 1, 64, 128, seed=520 + j,
+                                       rkv_dtype=dt)
+        whole = k3.wkv6(r, k, v, w, u, s0)
+        halves = [tuple(t[:, :, sl].contiguous() for t in (r, k, v, w))
+                  for sl in (slice(0, 57), slice(57, None))]
+        y1, s1 = k3.wkv6(*halves[0], u, s0)
+        y2, s2 = k3.wkv6(*halves[1], u, s1)
+        torch.cuda.synchronize()
+        _held(torch, "K3", "halves vs whole", dt,
+              (torch.cat([y1, y2], 2), s2), whole, WKV_TOL, failed)
+        _held(torch, "K3", "whole from s0", dt, whole,
+              ref.wkv6_ref(r, k, v, w, u, s0), WKV_TOL, failed)
+    check(not failed, f"K3 disagrees with its plain version: {failed}")
     return main_err
 
 
@@ -438,9 +525,12 @@ def time_scan(torch, k2, ref, B, S, R) -> dict:
                             50 if S <= 32 else 3),
         "library_ms": None,     # no single PyTorch call is a linear scan
     }
+    row["device_ms"] = device_ms(torch, lambda: k2.rglru_scan(a, b),
+                                 50 if S <= 32 else 20)
     row["bound_ms"], row["bound_by"] = scan_bound(a, b, h, hf)
     row["shape"] = f"B={B} S={S} R={R} f32"
-    print(f"[time] K2 {row['shape']}: kernel {row['ms']:.5f} ms, plain "
+    print(f"[time] K2 {row['shape']}: kernel {row['ms']:.5f} ms a call "
+          f"({row['device_ms']:.5f} ms of device time, CUDA graph), plain "
           f"{row['plain_ms']:.5f} ms, no library call, bound "
           f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
     return row
@@ -460,11 +550,14 @@ def time_wkv(torch, k3, ref, B, H, S, *, zero_s0: bool) -> dict:
                             20 if S <= 32 else 3),
         "library_ms": None,     # no single PyTorch call computes the WKV
     }
+    row["device_ms"] = device_ms(torch, lambda: k3.wkv6(r, k, v, w, u, s0),
+                                 50 if S <= 32 else 20)
     inputs = [r, k, v, w, u] + ([s0] if s0 is not None else [])
     row["bound_ms"], row["bound_by"] = wkv_bound(inputs, [y, sf])
     row["shape"] = (f"B={B} H={H} S={S} N=64 bf16 r/k/v"
                     + (", zero s0" if zero_s0 else ", no s0"))
-    print(f"[time] K3 {row['shape']}: kernel {row['ms']:.5f} ms, plain "
+    print(f"[time] K3 {row['shape']}: kernel {row['ms']:.5f} ms a call "
+          f"({row['device_ms']:.5f} ms of device time, CUDA graph), plain "
           f"{row['plain_ms']:.5f} ms, no library call, bound "
           f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
     return row
@@ -630,7 +723,7 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; TF32 off for matmul and cuDNN")
 
-    build(torch, [fa, k2, k3], fa)
+    build(torch, [fa, k2, k3], fa, k3)
     fa_err = check_attention(torch, fa, ref)
     k2_err = check_scan(torch, k2, ref)
     k3_err = check_wkv(torch, k3, ref)
@@ -683,7 +776,7 @@ def main() -> int:
                 "max_abs_err": err, "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                "shape": t["shape"],
+                "device_ms": t.get("device_ms"), "shape": t["shape"],
                 "launches_by_path": {arch: p[name]
                                      for arch, p in paths.items()}}
 

@@ -7,8 +7,9 @@ and what the design does about it.  It is built like the flash-attention
 kernel (:mod:`._build`).  The plain version of the same function is
 :func:`repro_torch.kernels.ref.rglru_ref`.
 
-``launches`` counts the kernel launches made through
-:func:`rglru_scan`; callers reset it to 0 before a run they want to
+``launches`` counts the calls of the kernel's entry point made through
+:func:`rglru_scan` (one launch for S up to :func:`chunk`, the chunked
+scan's three past it); callers reset it to 0 before a run they want to
 account for.
 """
 
@@ -21,13 +22,13 @@ import torch
 
 from . import _build
 
-__all__ = ["rglru_scan", "build"]
+__all__ = ["rglru_scan", "build", "chunk"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "rglru.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
-#: kernel launches made through :func:`rglru_scan`
+#: entry-point calls made through :func:`rglru_scan`
 launches = 0
 
 
@@ -35,6 +36,13 @@ def build() -> Path:
     """Compile ``csrc/rglru.cu`` (once per source content) and return the
     shared library's path (:func:`._build.build`)."""
     return _build.build(_SOURCE)
+
+
+def chunk() -> int:
+    """Time steps a chunk of the kernel's chunked scan, from the library:
+    a longer S takes three launches (summaries, carries, rescan), a
+    shorter one the one-pass loop."""
+    return _build.function(_SOURCE, "repro_rglru_chunk", [])()
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor,
@@ -70,12 +78,18 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     h_final = torch.empty((B, R), dtype=torch.float32, device=a.device)
     if h_final.numel() == 0:
         return h, h_final
+    # past one chunk the scan runs chunked over time, through a scratch
+    # of each chunk's product of a and local scan (csrc/rglru.cu)
+    T = chunk()
+    scratch = (torch.empty((2, B, -(-S // T), R), dtype=torch.float32,
+                           device=a.device) if S > T else None)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(a.data_ptr(), b.data_ptr(),
                  h0.data_ptr() if h0 is not None else None,
-                 h.data_ptr(), h_final.data_ptr(), B, S, R, _DTYPES[a.dtype],
-                 stream)
+                 h.data_ptr(), h_final.data_ptr(),
+                 scratch.data_ptr() if scratch is not None else None,
+                 B, S, R, _DTYPES[a.dtype], stream)
     if err != 0:
         raise RuntimeError(f"rglru_scan: launch failed with CUDA error "
                            f"{err}")

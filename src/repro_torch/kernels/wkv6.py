@@ -10,7 +10,9 @@ r, k, v and w keep the reference's ``(B, H, S, N)`` layout at this
 boundary, but need not be contiguous: the kernel takes element strides
 for the first three axes (the model passes the head-transposed views of
 its ``(B, S, H, N)`` projections), shared by all four, with the last
-axis contiguous.  Other layouts raise.
+axis contiguous.  The kernel reads them through TMA tensor maps, so the
+four tensors must start on 16-byte boundaries and their strides keep
+every row there.  Other layouts raise.
 
 ``launches`` counts the kernel launches made through :func:`wkv6`;
 callers reset it to 0 before a run they want to account for.
@@ -25,7 +27,7 @@ import torch
 
 from . import _build
 
-__all__ = ["wkv6", "build"]
+__all__ = ["wkv6", "build", "cluster_info"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "wkv6.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -43,6 +45,21 @@ def build() -> Path:
     """Compile ``csrc/wkv6.cu`` (once per source content) and return the
     shared library's path (:func:`._build.build`)."""
     return _build.build(_SOURCE)
+
+
+def cluster_info(dtype: torch.dtype) -> dict[str, int]:
+    """What the runtime reports of the kernel for r/k/v in ``dtype``: the
+    thread block cluster width it requires, how many such clusters fit on
+    the card at once, and a block's dynamic shared memory in bytes."""
+    fn = _build.function(_SOURCE, "repro_wkv6_cluster_info",
+                         [ctypes.c_int] + [ctypes.c_void_p] * 3)
+    out = [ctypes.c_int(0) for _ in range(3)]
+    err = fn(_DTYPES[dtype], *(ctypes.byref(x) for x in out))
+    if err != 0:
+        raise RuntimeError(f"wkv6: cluster query failed with CUDA error "
+                           f"{err}")
+    return dict(zip(("cluster_width", "max_active_clusters", "smem_bytes"),
+                    (x.value for x in out)))
 
 
 def _strides(t: torch.Tensor) -> tuple[int, ...]:
@@ -99,6 +116,12 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device != r.device:
             raise ValueError(f"wkv6: {name} is on {t.device}, r is on "
                              f"{r.device}")
+    align = 16 // r.element_size()
+    if any(t.data_ptr() % 16 for t in (r, k, v, w)) \
+            or any(st % align for st in _strides(r)[:3]):
+        raise ValueError(f"wkv6: r, k, v and w must start on 16-byte "
+                         f"boundaries with strides that are multiples of "
+                         f"{align} elements; r has strides {r.stride()}")
     fn = _build.function(_SOURCE, "repro_wkv6_fwd", _ARGTYPES)
     y = torch.empty((B, H, S, N), dtype=torch.float32, device=r.device)
     s_final = torch.empty((B, H, N, N), dtype=torch.float32,

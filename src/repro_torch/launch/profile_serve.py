@@ -28,7 +28,7 @@ from .serve import serve
 
 #: kernels of this package, by the name of their CUDA function
 PORT_KERNELS = ("flash_attention_tc", "flash_attention_f32",
-                "rglru_scan_kernel", "wkv6_kernel")
+                "rglru_scan_kernel", "rglru_chunk_", "wkv6_kernel")
 
 
 def _device_us(evt) -> float:

@@ -278,15 +278,23 @@ def decode_step(params: Transformer, token: torch.Tensor, pos: torch.Tensor,
 
 def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             max_len: int | None = None,
-            return_all_logits: bool = False
+            return_all_logits: bool = False, *, length: int | None = None
             ) -> tuple[torch.Tensor, list[dict]]:
     """Forward over a prompt, returning (last-token logits, filled cache)
     — or all logits with ``return_all_logits``.
+
+    ``length`` is the prompt's true length L when ``tokens`` is
+    right-padded to a bucket (default: all S positions are real).  Each
+    attention ring is filled from real positions only: [max(0, L − Sc),
+    L), each at slot position % Sc, so pad keys never enter a ring.
 
     The reference recomputes k/v to fill the cache; the port stores the
     k/v the attention already computed, which are the same tensors.
     """
     B, S = tokens.shape
+    L = S if length is None else length
+    if not 1 <= L <= S:
+        raise ValueError(f"prefill: length {length} for {S} positions")
     max_len = max_len or S
     h = params.embed_tokens(tokens)
     positions = torch.arange(S, device=h.device)
@@ -304,12 +312,13 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             continue
         h, k, v = layer(h, positions, local=params.local(i))
         Sc = c["k"].shape[1]
-        if Sc < S:
-            # Ring buffer smaller than the prompt: keep the last Sc keys,
-            # each at slot position % Sc as decode reads them.  (The
-            # reference asserts S % Sc == 0, where the roll is 0.)
-            k, v = (torch.roll(x[:, -Sc:], S % Sc, dims=1) for x in (k, v))
-        n = k.shape[1]
+        n = min(L, Sc)
+        k, v = (x[:, L - n:L] for x in (k, v))
+        if n == Sc:
+            # Ring buffer no longer than the prompt: its last Sc keys, each
+            # at slot position % Sc as decode reads them.  (The reference
+            # asserts S % Sc == 0, where the roll is 0.)
+            k, v = (torch.roll(x, L % Sc, dims=1) for x in (k, v))
         c["k"][:, :n] = _cache_store(k, c["k"].dtype)
         c["v"][:, :n] = _cache_store(v, c["v"].dtype)
     if return_all_logits:

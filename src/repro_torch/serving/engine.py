@@ -163,9 +163,10 @@ class ServingEngine:
         self.prefills = 0
 
     @torch.no_grad()
-    def _prefill(self, params: Transformer, prompt: torch.Tensor):
+    def _prefill(self, params: Transformer, prompt: torch.Tensor,
+                 length: int):
         return prefill(params, prompt, self.cfg, max_len=self.max_len,
-                       return_all_logits=self._bucketing)
+                       return_all_logits=self._bucketing, length=length)
 
     @torch.no_grad()
     def _decode(self, params: Transformer, tokens: torch.Tensor,
@@ -263,7 +264,8 @@ class ServingEngine:
                 toks = toks + [0] * (bucket - len(toks))
             prompt = torch.tensor([toks], dtype=torch.long,
                                   device=self.device)
-            logits, cache1 = self._prefill(self.params, prompt)
+            logits, cache1 = self._prefill(self.params, prompt,
+                                           len(req.prompt))
             self.prefills += 1
             if self._bucketing:
                 logits = logits[:, len(req.prompt) - 1]

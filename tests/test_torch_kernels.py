@@ -410,3 +410,128 @@ def test_wkv_kernel_extreme_decay(cuda):
     assert torch.isfinite(y).all() and torch.isfinite(s).all()
     y_ref, _ = ref.wkv6_ref(r, k, v, w, u)
     torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 2048])
+def test_scan_kernel_chunk_edges(cuda, S, with_h0, dtype):
+    """K2 around its chunk T = 64: the one-pass loop up to T, the chunked
+    scan (summaries, carries, rescan) past it; one entry-point call
+    each, at 1e-5."""
+    assert k2.chunk() == 64
+    rng = np.random.default_rng(S)
+    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((2, S, 300))))
+    b = rng.standard_normal((2, S, 300)) * 0.1
+    at, bt = (torch.from_numpy(x.astype(np.float32)).to(cuda, DTYPES[dtype])
+              for x in (a, b))
+    h0 = (torch.from_numpy(rng.standard_normal((2, 300), dtype=np.float32))
+          .to(cuda) if with_h0 else None)
+    before = k2.launches
+    h, hf = ops.rglru(at, bt, h0)
+    torch.cuda.synchronize()
+    assert k2.launches == before + 1
+    want = ref.rglru_ref(at, bt, h0)
+    torch.testing.assert_close(h, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(hf, want[:, -1], rtol=1e-5, atol=1e-5)
+
+
+def _wkv_on(cuda, B, H, S, dtype, seed, with_s0=True):
+    r, k, v, w, u, s0 = (None if a is None else torch.from_numpy(a).to(cuda)
+                         for a in _wkv_inputs(B, H, S, seed=seed,
+                                              with_s0=with_s0))
+    r, k, v = (t.to(DTYPES[dtype]) for t in (r, k, v))
+    return r, k, v, w, u, s0
+
+
+def _wkv_held(got, r, k, v, w, u, s0):
+    torch.cuda.synchronize()
+    y_ref, s_ref = ref.wkv6_ref(r, k, v, w, u, s0)
+    torch.testing.assert_close(got[0], y_ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got[1], s_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("chunk", [1, 16, 32])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 31, 32, 33, 2048])
+def test_wkv_kernel_chunk_edges(cuda, S, chunk, dtype):
+    """K3 around its chunks and two-chunk blocks, B=2 with a random
+    initial state, at 1e-4."""
+    r, k, v, w, u, s0 = _wkv_on(cuda, 2, 2, S, dtype, seed=S + chunk)
+    before = k3.launches
+    got = ops.wkv(r, k, v, w, u, s0, chunk=chunk)
+    assert k3.launches == before + 1
+    _wkv_held(got, r, k, v, w, u, s0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_wkv_kernel_takes_the_models_layout_in_both_dtypes(cuda, dtype):
+    """Head-transposed views of (B, S, H, N) projections, in float32 and
+    bfloat16 r/k/v."""
+    r, k, v, w, u, s0 = _wkv_on(cuda, 2, 4, 40, dtype, seed=7)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (r, k, v, w)]
+    assert not views[0].is_contiguous()
+    _wkv_held(ops.wkv(*views, u, s0), r, k, v, w, u, s0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("decay", ["1e-38", "1", "1e-6|0.999"])
+def test_wkv_kernel_decay_edges(cuda, decay, dtype):
+    """w = 1e-38 (clipped before the log) and w = 1 everywhere; half the
+    channels at 1e-6, half at 0.999."""
+    r, k, v, w, u, s0 = _wkv_on(cuda, 1, 4, 100, dtype, seed=8)
+    w = {"1e-38": torch.full_like(w, 1e-38), "1": torch.ones_like(w),
+         "1e-6|0.999": torch.where(torch.arange(64, device=cuda) < 32, 1e-6,
+                                   0.999).expand_as(w).contiguous()}[decay]
+    got = ops.wkv(r, k, v, w, u, s0)
+    assert torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()
+    _wkv_held(got, r, k, v, w, u, s0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_wkv_kernel_continuation(cuda, dtype):
+    """From a random s0: two halves (the first ending mid-chunk) equal the
+    whole, and the whole equals the plain version."""
+    r, k, v, w, u, s0 = _wkv_on(cuda, 1, 8, 128, dtype, seed=9)
+    whole = ops.wkv(r, k, v, w, u, s0)
+    first = [t[:, :, :57] for t in (r, k, v, w)]
+    second = [t[:, :, 57:] for t in (r, k, v, w)]
+    y1, s1 = ops.wkv(*first, u, s0)
+    y2, s2 = ops.wkv(*second, u, s1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat([y1, y2], 2), whole[0], rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(s2, whole[1], rtol=1e-4, atol=1e-4)
+    _wkv_held(whole, r, k, v, w, u, s0)
+
+
+@pytest.mark.gpu
+def test_wkv_kernel_refuses_unaligned_inputs(cuda):
+    """The kernel copies 16-byte pieces of each row: a tensor off a
+    16-byte boundary raises, launching nothing."""
+    r, k, v, w, u, _ = _wkv_on(cuda, 1, 2, 16, "float32", seed=10)
+    off = torch.zeros(r.numel() + 1, device=cuda)[1:].view(r.shape)
+    off.copy_(r)
+    before = k3.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        k3.wkv6(off, k, v, w, u)
+    assert k3.launches == before
+
+
+@pytest.mark.gpu
+def test_wkv_kernel_runs_on_the_tensor_cores_in_clusters(cuda):
+    """Both instantiations hold mma.sync (SASS ``HMMA``) instructions, and
+    the runtime launches them in clusters of a head's 4 CTAs."""
+    from repro_torch.kernels import _build
+    counts = {n: c for n, c in _build.sass_counts(k3._SOURCE, "HMMA").items()
+              if "wkv6_kernel" in n}
+    assert len(counts) == 2 and all(c > 0 for c in counts.values()), counts
+    for dtype in DTYPES.values():
+        info = k3.cluster_info(dtype)
+        assert info["cluster_width"] == 2 and info["max_active_clusters"] > 0

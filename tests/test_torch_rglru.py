@@ -88,6 +88,28 @@ def test_rglru_scan_matches_reference(B, S, R, t_blk, r_blk, reference):
     _close(hf, want_f, SCAN_TOL)
 
 
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 2048])
+def test_rglru_scan_chunk_edges_match_reference(S, with_h0):
+    """The S values around K2's chunk of 64 that the card tests use (the
+    one-pass loop up to 64, the chunked scan past it): the plain version
+    the card trusts against the reference's scan, and against its Pallas
+    kernel in interpret mode where 64 divides S."""
+    a, b, h0 = _scan_inputs(1, S, 128, seed=S)
+    h0 = h0 if with_h0 else None
+    h, hf = ops.rglru(_t(a), _t(b), None if h0 is None else _t(h0))
+    args = [jnp.asarray(x) for x in (a, b)] \
+        + ([jnp.asarray(h0)] if h0 is not None else [])
+    want = jref.rglru_ref(*args)
+    _close(h, want, SCAN_TOL)
+    _close(hf, want[:, -1], SCAN_TOL)
+    if S % 64 == 0:
+        want, want_f = jops.rglru(*args, impl="interpret", t_blk=64,
+                                  r_blk=128)
+        _close(h, want, SCAN_TOL)
+        _close(hf, want_f, SCAN_TOL)
+
+
 def test_rglru_scan_reads_bf16_as_f32():
     a, b, _ = _scan_inputs(2, 24, 128, seed=1)
     aj, bj = jnp.asarray(a, jnp.bfloat16), jnp.asarray(b, jnp.bfloat16)

@@ -161,6 +161,54 @@ def test_wkv_ragged_matches_chunked(S):
     _close(s, sj, WKV_TOL)
 
 
+@pytest.mark.parametrize("reference", ["ref", "chunked"])
+@pytest.mark.parametrize("S", [1, 15, 16, 17, 31, 32, 33, 2048])
+def test_wkv_chunk_edges_match_reference(S, reference):
+    """The S values around K3's chunks that the card tests use, with a
+    random initial state: the plain version the card trusts against the
+    reference's step-by-step WKV and its chunked WKV (which pads a ragged
+    S, as the kernel masks it)."""
+    B, H = (1, 1) if S == 2048 else (1, 2)
+    r, k, v, w, u, s0 = _wkv_inputs(B, H, S, seed=S)
+    y, s = ops.wkv(*(_t(a) for a in (r, k, v, w, u, s0)))
+    yj, sj = _jax_wkv(reference, r, k, v, w, u, s0, chunk=16)
+    _close(y, yj, WKV_TOL)
+    _close(s, sj, WKV_TOL)
+
+
+@pytest.mark.parametrize("decay,reference", [
+    ("1e-38", "ref"), ("1", "ref"), ("1", "chunked"),
+    ("1e-6|0.999", "ref"), ("1e-6|0.999", "chunked")])
+def test_wkv_decay_edges_match_reference(decay, reference):
+    """Decays at the clamp's edges, as the card tests hold K3 there: w =
+    1e-38 (clipped before the log), w = 1, and half the channels at 1e-6,
+    half at 0.999.  At w = 1e-38 only the step-by-step reference: XLA on
+    the CPU flushes the subnormal 1e-38 to 0, so the reference's chunked
+    forms take log 0 there and return NaN."""
+    r, k, v, w, u, s0 = _wkv_inputs(1, 2, 40, seed=11)
+    w = {"1e-38": np.full_like(w, 1e-38), "1": np.ones_like(w),
+         "1e-6|0.999": np.broadcast_to(
+             np.where(np.arange(64) < 32, 1e-6, 0.999).astype(np.float32),
+             w.shape).copy()}[decay]
+    y, s = ops.wkv(*(_t(a) for a in (r, k, v, w, u, s0)))
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    yj, sj = _jax_wkv(reference, r, k, v, w, u, s0, chunk=16)
+    _close(y, yj, WKV_TOL)
+    _close(s, sj, WKV_TOL)
+
+
+@pytest.mark.parametrize("chunk", [16, 32])
+def test_k3_products_need_the_tf32_split(chunk):
+    """K3's products on the tensor cores, emulated (launch/k3_split.py):
+    with 3xTF32 operands the chunked WKV holds the kernel's 1e-4 against
+    the plain version, as unrounded products do; one TF32 pass does
+    not."""
+    from repro_torch.launch import k3_split
+    errs = k3_split.errors(1, 4, 70, bf16=True, with_s0=True, chunk=chunk)
+    assert errs["f32"] < 2e-5 and errs["3x"] < 2e-5, errs
+    assert errs["1x"] > k3_split.WKV_TOL, errs
+
+
 # ---------------------------------------------------------------------------
 # The block's pieces against repro.models.rwkv
 # ---------------------------------------------------------------------------

@@ -153,6 +153,33 @@ def test_engine_refuses_params_on_another_device(models):
         ServingEngine(cfg, params, device="meta")
 
 
+@pytest.mark.parametrize("max_len,prompt_len,max_new", [
+    (100, 70, 8),     # bucket 128 past the ring, L < Sc
+    (20, 18, 2),      # bucket 32 past the ring, L <= Sc; the engine stops
+                      # at position max_len - 1
+])
+def test_bucketed_prefill_past_the_ring_matches_forward(
+        models, max_len, prompt_len, max_new):
+    """A prompt whose bucket is longer than the cache ring: the ring holds
+    the prompt's own keys, never the padding, so the engine's greedy
+    tokens are ``forward``'s (decoding stays inside the ring)."""
+    from repro_torch.models import forward
+    _, (cfg, params) = models
+    prompt = np.random.default_rng(prompt_len).integers(
+        0, cfg.vocab, size=prompt_len).tolist()
+    engine = ServingEngine(cfg, params, max_batch=1, max_len=max_len,
+                           device="cpu")
+    assert engine._bucketing
+    req = engine.submit(Request(prompt=prompt, max_new_tokens=max_new))
+    engine.run_until_drained()
+    toks = list(prompt)
+    with torch.no_grad():
+        for _ in range(max_new):
+            logits, _ = forward(params, torch.tensor([toks]), cfg)
+            toks.append(int(torch.argmax(logits[0, -1, :cfg.vocab])))
+    assert req.output == toks[prompt_len:]
+
+
 def test_serve_launcher_on_cpu():
     cfg = get_smoke_config(ARCH)
     result = serve(cfg, requests=5, max_batch=2, max_new=4, device="cpu")
@@ -216,8 +243,8 @@ def test_recurrent_engine_prefills_at_exact_length(rg_models):
                            device="cpu")
     assert not engine._bucketing
     seen = []
-    engine._prefill = (lambda p, t, f=engine._prefill:
-                       seen.append(t.shape[1]) or f(p, t))
+    engine._prefill = (lambda p, t, *a, f=engine._prefill:
+                       seen.append(t.shape[1]) or f(p, t, *a))
     prompt = [3, 1, 4, 1, 5]
     engine.submit(Request(prompt=prompt, max_new_tokens=1))
     engine._admit()
