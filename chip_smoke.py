@@ -39,7 +39,9 @@ and no result line is printed):
    whole);
 3. times — each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (a yardstick only: the port
-   never calls it), beside the kernel's bound; for K1 also its achieved
+   never calls it), beside the kernel's bound, at the serving shapes (K1
+   also at S=2048 and at the full-width train step's B=8, S=128; K2 and
+   K3 at S=2048); for K1 also its achieved
    TFLOP/s and its share of the bound; for K2 and K3 also the device
    time a launch from a replayed CUDA graph, since back-to-back calls at
    the serving shape time the Python wrapper;
@@ -53,19 +55,41 @@ and no result line is printed):
    must give the same logits and greedy tokens on the card as the plain
    path on the CPU; for llama3.2-1b and recurrentgemma-2b a small bf16
    one (K1 on the tensor cores) must give logits within 2e-2 of the
-   logits' scale of the CPU's.
+   logits' scale of the CPU's;
+7. gradients through the kernels — each kernel's gradient on the card
+   (its forward, with the plain version's backward: ``kernels/ops.py``)
+   against the fully plain autograd gradient on the card, for a random
+   linear functional of the outputs: K1 at D=64, 128 and 256, with a
+   window and a softcap, in float32 (1e-5) and bfloat16 (2e-2 of the
+   gradient's scale); K2 (1e-5) and K3 (1e-4) at S = 1, 17 and 65 with
+   and without h0 / s0; each kernel must have launched in its forward;
+8. one train step of a small llama3.2-1b (d_model 256, head_dim 64, so
+   that K1 runs; remat "full") on the card and on the CPU from the same
+   weights: in float32, loss and grad norm within 1e-5 / 1e-4 and the
+   parameters within one AdamW step everywhere and 1e-6 at all but 0.1 %
+   of the elements (tests/test_torch_train.py's tolerances); in bfloat16
+   the loss within 2e-2 of itself;
+9. train llama3.2-1b at full width (16 layers, d_model 2048, bf16
+   parameters, f32 AdamW state and gradient accumulation, remat "full")
+   through ``repro_torch.train.trainer.Trainer``: global batch 8, 128
+   tokens, accum 1, warmup 2, 6 steps; every loss and grad norm finite,
+   the mean of the last two losses below the first two, and K1 launched
+   exactly 32 times a step (16 layers, forward and the remat recompute;
+   the backward recomputes the plain version).  Prints ms a step
+   (synchronised), tokens/s, model TFLOP/s (6·N·B·S) and peak memory.
 
-The launch counts of each serving path are set to 0 just before it and
-read just after; a kernel that the path does not run must show 0.  The
-last two lines are the kernels' JSON record and the result line
-``{"ok": true, "device": {...}}``.  Needs one CUDA device; fails
-without.
+The launch counts of each serving path and of the full-width train run
+are set to 0 just before it and read just after; a kernel that the path
+does not run must show 0.  The last two lines are the kernels' JSON
+record and the result line ``{"ok": true, "device": {...}}``.  Needs one
+CUDA device; fails without.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import math
 import subprocess
 import sys
 import time
@@ -263,7 +287,7 @@ def build(torch, kernels, fa, k3) -> None:
 
 def check_attention(torch, fa, ref) -> float:
     """K1 against its plain version; returns the largest error at the
-    serving paths' shapes."""
+    serving and train paths' shapes."""
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # name, B, S, H, KV, D, dtype, window, softcap, input scale
         ("serve S=16", 1, 16, 32, 8, 64, bf16, None, None, 1.0),
@@ -275,6 +299,7 @@ def check_attention(torch, fa, ref) -> float:
         ("ragged S=200", 2, 200, 32, 8, 64, bf16, None, None, 1.0),
         ("serve D=256 S=4", 1, 4, 10, 1, 256, bf16, 2048, None, 1.0),
         ("serve D=256 S=23", 1, 23, 10, 1, 256, bf16, 2048, None, 1.0),
+        ("train B=8 S=128", 8, 128, 32, 8, 64, bf16, None, None, 1.0),
         ("D=256 S=2048", 1, 2048, 10, 1, 256, bf16, 2048, None, 1.0),
         ("D=256 window 128", 1, 512, 10, 1, 256, bf16, 128, None, 1.0),
     ]
@@ -312,7 +337,7 @@ def check_attention(torch, fa, ref) -> float:
         print(f"[check] K1 {name:18s} {str(dt):15s} max|err| {err:.3e} "
               f"(rtol=atol={tol:g}) {'ok' if ok else 'FAIL'}")
         check(ok, f"K1 {name}: kernel disagrees with its plain version")
-        if name.startswith("serve"):
+        if name.startswith(("serve", "train")):
             main_err = max(main_err, err)
     return main_err
 
@@ -364,7 +389,7 @@ def check_scan(torch, k2, ref) -> float:
         want = ref.rglru_ref(a, b, h0)
         err = _held(torch, "K2", name, dt, (h, hf), (want, want[:, -1]),
                     SCAN_TOL, failed)
-        if name.startswith("serve"):
+        if name.startswith(("serve", "train")):
             main_err = max(main_err, err)
     # continuation: two halves, the second from the first's final state
     a, b, h0 = scan_inputs(torch, 2, 2 * T + 6, 2560, seed=200)
@@ -419,7 +444,7 @@ def check_wkv(torch, k3, ref) -> float:
         want = ref.wkv6_ref(r, k, v, w, u, s0)
         err = _held(torch, "K3", name, r.dtype, (y, sf), want, WKV_TOL,
                     failed)
-        if name.startswith("serve"):
+        if name.startswith(("serve", "train")):
             main_err = max(main_err, err)
     for j, dt in enumerate((f32, bf16)):
         # the model's layout: head-transposed views of (B, S, H, N)
@@ -491,6 +516,14 @@ def time_attention(torch, fa, ref, B, S, H, KV, D, window=None) -> dict:
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                               **gqa_kw)
 
+    o = fa.flash_attention(q, k, v, window=window)
+    o_ref = ref.attention_ref(q, k, v, window=window)
+    tol = TOL["bfloat16"]
+    err = (o.float() - o_ref.float()).abs().max().item()
+    check(o.shape == o_ref.shape and bool(torch.isfinite(o).all())
+          and torch.allclose(o.float(), o_ref.float(), rtol=tol, atol=tol),
+          f"K1 timed at B={B} S={S} D={D}: kernel disagrees with its plain "
+          f"version (max|err| {err:.3e})")
     iters = 200 if S <= 32 else 20
     row = {
         "ms": time_ms(torch, lambda: fa.flash_attention(q, k, v,
@@ -504,6 +537,8 @@ def time_attention(torch, fa, ref, B, S, H, KV, D, window=None) -> dict:
                                                        window)
     row["shape"] = (f"B={B} S={S} H={H} KV={KV} D={D} bf16"
                     + (f" window {window}" if window else ""))
+    print(f"[check] K1 timed {row['shape']}: max|err| {err:.3e} "
+          f"(rtol=atol={tol:g}) ok")
     print(f"[time] K1 {row['shape']}: kernel {row['ms']:.5f} ms, plain "
           f"{row['plain_ms']:.5f} ms, sdpa {row['library_ms']:.5f} ms, "
           f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
@@ -702,6 +737,255 @@ def small_bf16_model_on_card_and_cpu(torch, fa, arch: str, tag: str,
           f"{arch}: small bf16 model logits differ between card and CPU")
 
 
+# -- 7.-9. training ------------------------------------------------------------------
+
+
+def _functional_grads(torch, outs, inputs, seed: int):
+    """Gradients of a random linear functional of ``outs`` (float32
+    coefficients drawn on the card from ``seed``) with respect to
+    ``inputs``."""
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    loss = sum((o.float() * torch.randn(o.shape, generator=g,
+                                        device="cuda")).sum() for o in outs)
+    return torch.autograd.grad(loss, inputs)
+
+
+def check_gradients(torch, ops, ref, fa, k2, k3) -> None:
+    """Each kernel's gradient (kernel forward, plain backward) against the
+    fully plain autograd gradient on the card, inputs and outputs alike."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = []      # name, module, dispatch, plain, inputs, tolerance
+    for D, H, KV in ((64, 8, 2), (128, 8, 2), (256, 10, 1)):
+        for dt in (f32, bf16):
+            for window, softcap in ((None, None), (24, None), (None, 20.0)):
+                q, k, v = attention_inputs(torch, 2, 40, H, KV, D, dt,
+                                           seed=D + (window or 0),
+                                           scale=3.0 if softcap else 1.0)
+                cases.append((
+                    f"D={D} window={window} softcap={softcap}", fa,
+                    lambda *x, w=window, c=softcap: ops.attention(
+                        *x, window=w, softcap=c),
+                    lambda *x, w=window, c=softcap: ref.attention_ref(
+                        *x, window=w, softcap=c),
+                    [q, k, v], TOL["float32"] / 2 if dt == f32 else None))
+    for S in (1, 17, 65):
+        for with_state in (False, True):
+            a, b, h0 = scan_inputs(torch, 2, S, 256, seed=S)
+            cases.append((f"S={S}" + (" h0" if with_state else ""), k2,
+                          ops.rglru, ops._rglru_plain,
+                          [a, b, h0 if with_state else None], SCAN_TOL))
+            r, k, v, w, u, s0 = wkv_inputs(torch, 1, 4, S, seed=S)
+            cases.append((f"S={S}" + (" s0" if with_state else ""), k3,
+                          ops.wkv, ref.wkv6_ref,
+                          [r, k, v, w, u, s0 if with_state else None],
+                          WKV_TOL))
+    failed = []
+    for i, (name, mod, dispatch, plain, inputs, tol) in enumerate(cases):
+        tag = {id(fa): "K1", id(k2): "K2", id(k3): "K3"}[id(mod)]
+        inputs = [None if x is None else x.detach().requires_grad_(True)
+                  for x in inputs]
+        wrt = [x for x in inputs if x is not None]
+        before = mod.launches
+        got = _functional_grads(torch, dispatch(*inputs), wrt, i)
+        launched = mod.launches - before
+        want = _functional_grads(torch, plain(*inputs), wrt, i)
+        torch.cuda.synchronize()
+        errs, ok = [], launched == 1
+        for gg, ww in zip(got, want):
+            gg, ww = gg.float(), ww.float()
+            t = tol if tol is not None \
+                else TOL["bfloat16"] * ww.abs().max().item()
+            errs.append((gg - ww).abs().max().item())
+            ok &= bool(torch.isfinite(gg).all()) and torch.allclose(
+                gg, ww, rtol=tol or 0.0, atol=t)
+        dt = str(inputs[0].dtype).removeprefix("torch.")
+        print(f"[grad] {tag} {name:32s} {dt:8s} launches {launched}, "
+              f"max|Δgrad| {max(errs):.3e} over {len(wrt)} inputs "
+              f"({'ok' if ok else 'FAIL'})")
+        if not ok:
+            failed.append(f"{tag} {name} {dt}")
+    check(not failed, f"kernel-forward gradients differ from the plain "
+                      f"ones: {failed}")
+
+
+def train_step_on_card_and_cpu(torch, fa, dtype: str) -> None:
+    """One train step of a small llama3.2-1b (K1 at D=64) on the card and
+    on the CPU from the same weights and batch."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train.steps import StepConfig, make_train_step
+
+    small = get_smoke_config("llama3.2-1b").replace(
+        param_dtype=dtype, d_model=256, n_heads=4, kv_heads=2, head_dim=64,
+        d_ff=512, remat="full")
+    data = SyntheticLM(vocab=small.vocab, seq_len=64, global_batch=4,
+                       seed=0)
+    batch_np = next(data)
+    data.close()
+    step = make_train_step(small, AdamWConfig(), StepConfig(warmup=0))
+    cpu_model = init_params(small, torch.Generator().manual_seed(0),
+                            device="cpu")
+    out = {}
+    for dev, model in (("cuda", copy.deepcopy(cpu_model).to("cuda")),
+                       ("cpu", cpu_model)):
+        state = adamw_init(dict(model.named_parameters()), AdamWConfig())
+        batch = {k: torch.from_numpy(getattr(batch_np, k)).to(dev,
+                                                              torch.long)
+                 for k in ("tokens", "labels")}
+        fa.launches = 0
+        model, state, m = step(model, state, 0, batch)
+        out[dev] = (model, float(m["loss"]), float(m["grad_norm"]),
+                    fa.launches)
+    (gpu, l_gpu, n_gpu, launched), (cpu, l_cpu, n_cpu, _) = \
+        out["cuda"], out["cpu"]
+    tag = f"train step, small llama3.2-1b {dtype}"
+    print(f"[{tag}] loss card {l_gpu:.7f} CPU {l_cpu:.7f}; grad norm card "
+          f"{n_gpu:.7f} CPU {n_cpu:.7f}; K1 launches {launched}")
+    check(launched == 2 * small.n_layers,
+          f"{tag}: {launched} K1 launches, want {2 * small.n_layers}")
+    if dtype == "bfloat16":
+        check(abs(l_gpu - l_cpu) <= 2e-2 * abs(l_cpu),
+              f"{tag}: loss differs between card and CPU")
+        return
+    check(abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+          and abs(n_gpu - n_cpu) <= 1e-4 * abs(n_cpu),
+          f"{tag}: loss or grad norm differs between card and CPU")
+    worst, far = 0.0, 0
+    for (name, pg), pc in zip(gpu.named_parameters(), cpu.parameters()):
+        d = (pg.detach().cpu() - pc.detach()).abs()
+        worst = max(worst, d.max().item())
+        far += int((d > 1e-6).sum())
+        check(d.max().item() <= AdamWConfig().lr,
+              f"{tag}: {name} more than one step apart")
+    n = sum(p.numel() for p in cpu.parameters())
+    print(f"[{tag}] params after the step: max|Δ| {worst:.3e}, "
+          f"{far} of {n} elements beyond 1e-6")
+    check(far <= 1e-3 * n, f"{tag}: parameters differ between card and CPU")
+
+
+def check_update(torch, trainer, tag: str,
+                 leaves=("embed", "layers.0.wq", "layers.7.mlp.w2",
+                         "layers.15.wo", "final_ln"),
+                 n: int = 1 << 22) -> None:
+    """One more step of ``trainer``, split as its step is (``grads_of``,
+    then ``apply_update``).  On the first ``n`` elements of a few leaves
+    the new parameters and moments are held against AdamW written out
+    here in float64 on the CPU, from the same gradients, moments, global
+    norm and schedule: parameters within one bfloat16 ulp, moments at
+    1e-6 of their largest value."""
+    from repro_torch.train.steps import apply_update, grads_of
+
+    cfg, opt, scfg = trainer.cfg, trainer.tcfg.opt, trainer.step_cfg
+    batch_np = next(trainer.data)
+    batch = {k: torch.from_numpy(getattr(batch_np, k)).to(trainer.device,
+                                                          torch.long)
+             for k in ("tokens", "labels")}
+    named = dict(trainer.params.named_parameters())
+    _, grads = grads_of(trainer.params, cfg, batch, scfg)
+
+    def head(t):
+        return t.detach().reshape(-1)[:n].cpu().double()
+
+    before = {k: (head(named[k]), head(trainer.opt_state["mu"][k]),
+                  head(trainer.opt_state["nu"][k]), head(grads[k]))
+              for k in leaves}
+    count = int(trainer.opt_state["count"]) + 1
+    gnorm = math.sqrt(sum(float(g.double().square().sum())
+                          for g in grads.values()))
+    clip = min(1.0, scfg.clip_norm / max(gnorm, 1e-9))
+    step = trainer.step
+    if step < scfg.warmup:
+        lr_scale = step / max(scfg.warmup, 1)
+    else:
+        frac = min(max((step - scfg.warmup)
+                       / max(scfg.total_steps - scfg.warmup, 1), 0.0), 1.0)
+        lr_scale = 0.1 + 0.9 * 0.5 * (1.0 + math.cos(math.pi * frac))
+    trainer.opt_state, norm, _ = apply_update(
+        trainer.params, trainer.opt_state, step, grads, cfg, opt, scfg)
+    check(abs(float(norm) - gnorm) <= 1e-4 * gnorm,
+          f"{tag}: grad norm {float(norm)} against {gnorm} in float64")
+    moved = 0
+    for k in leaves:
+        p0, m0, v0, g = before[k]
+        g = g * clip
+        m = opt.b1 * m0 + (1 - opt.b1) * g
+        v = opt.b2 * v0 + (1 - opt.b2) * g * g
+        upd = (m / (1 - opt.b1 ** count)) \
+            / (torch.sqrt(v / (1 - opt.b2 ** count)) + opt.eps) \
+            + opt.weight_decay * p0
+        want = p0 - opt.lr * lr_scale * upd
+        got = head(named[k])
+        ulp = torch.ldexp(torch.ones_like(want),
+                          torch.frexp(want)[1] - 8)   # bfloat16's 8 bits
+        err = ((got - want).abs() / ulp).max().item()
+        seen = int(((want - p0).abs() > 2 * ulp).sum())
+        moved += seen
+        err_m = max(((head(trainer.opt_state[x][k]) - w).abs().max()
+                     / w.abs().max().clamp(min=1e-30)).item()
+                    for x, w in (("mu", m), ("nu", v)))
+        print(f"[{tag}] update of {k} (first {p0.numel()}): max|p − "
+              f"AdamW in float64| {err:.3f} ulp, {seen} elements move by "
+              f"more than 2 ulp; moments within {err_m:.2e} of their "
+              f"largest")
+        check(err <= 1.0 and err_m <= 1e-6,
+              f"{tag}: the update of {k} differs from AdamW in float64")
+    check(moved > 0, f"{tag}: no checked element moved visibly")
+
+
+def train_full_width(torch, kernels: dict, tag: str) -> dict:
+    """The port's Trainer on llama3.2-1b at full width; returns the
+    launch counts of the run, read just after it."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.steps import StepConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("llama3.2-1b")
+    check(cfg.param_dtype == "bfloat16" and cfg.remat == "full",
+          "unexpected llama3.2-1b config")
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = TrainerConfig(steps=6, global_batch=8, seq_len=128, log_every=1,
+                         step=StepConfig(accum=1, warmup=2))
+    trainer = Trainer(cfg, tcfg, device="cuda")
+    n_params = sum(p.numel() for p in trainer.params.parameters())
+    print(f"[{tag}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B parameters ({cfg.param_dtype}), AdamW "
+          f"state {trainer.tcfg.opt.state_dtype}, grads "
+          f"{trainer.tcfg.step.grad_dtype}, remat {cfg.remat}")
+    for mod in kernels.values():
+        mod.launches = 0
+    hist = trainer.run()
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    check_update(torch, trainer, tag)
+    trainer.close()
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    dts = [h["dt"] for h in hist]
+    tokens = tcfg.global_batch * tcfg.seq_len
+    steady = sum(dts[2:]) / len(dts[2:])
+    flops = 6.0 * cfg.param_count()[1] * tokens
+    print(f"[{tag}] losses {[round(x, 5) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in norms]}")
+    print(f"[{tag}] ms a step (synchronised) "
+          f"{[round(d * 1e3, 3) for d in dts]}; steps 3-6: "
+          f"{steady * 1e3:.3f} ms, {tokens / steady:.1f} tokens/s, "
+          f"{flops / steady / 1e12:.2f} model TFLOP/s (6·N·B·S = "
+          f"{flops:.4e}); peak memory {peak / 2**30:.2f} GiB; kernel "
+          f"launches {launches}")
+    check(all(math.isfinite(x) for x in losses + norms),
+          "a loss or grad norm is not finite")
+    check(sum(losses[-2:]) < sum(losses[:2]),
+          f"the loss did not fall: {losses}")
+    want = {"flash_attention": 2 * cfg.n_layers * len(hist),
+            "rglru_scan": 0, "wkv6": 0}
+    check(launches == want, f"{tag}: kernel launches {launches}, want "
+                            f"{want} (K1 32 a step)")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -710,7 +994,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rglru as k2
     from repro_torch.kernels import wkv6 as k3
 
@@ -732,6 +1016,7 @@ def main() -> int:
     time_attention(torch, fa, ref, 1, 2048, 32, 8, 64)
     time_attention(torch, fa, ref, 1, 23, 10, 1, 256, window=2048)
     time_attention(torch, fa, ref, 1, 2048, 10, 1, 256, window=2048)
+    time_attention(torch, fa, ref, 8, 128, 32, 8, 64)       # train step
     t_k2 = time_scan(torch, k2, ref, 1, 23, 2560)
     time_scan(torch, k2, ref, 1, 2048, 2560)
     t_k3 = time_wkv(torch, k3, ref, 1, 64, 23, zero_s0=True)
@@ -765,8 +1050,13 @@ def main() -> int:
                              "wkv6": 32}, "serve rwkv6-7b")
     small_model_on_card_and_cpu(torch, "rwkv6-7b", "serve rwkv6-7b")
 
+    check_gradients(torch, ops, ref, fa, k2, k3)
+    train_step_on_card_and_cpu(torch, fa, "float32")
+    train_step_on_card_and_cpu(torch, fa, "bfloat16")
+    train = train_full_width(torch, kernels, "train llama3.2-1b")
+
     paths = {"llama3.2-1b": llama, "recurrentgemma-2b": rgemma,
-             "rwkv6-7b": rwkv}
+             "rwkv6-7b": rwkv, "train llama3.2-1b": train}
 
     def row(name, src, replaces, err, t):
         return {"name": name, "route": "cuda",

@@ -3,9 +3,10 @@ entry points (the port of :mod:`repro.models`)."""
 
 from .config import LayerKind, ModelConfig
 from .transformer import (Transformer, decode_step, forward, init_cache,
-                          init_params, prefill)
+                          init_params, lm_loss, prefill)
 
 __all__ = [
     "LayerKind", "ModelConfig", "Transformer",
-    "decode_step", "forward", "init_cache", "init_params", "prefill",
+    "decode_step", "forward", "init_cache", "init_params", "lm_loss",
+    "prefill",
 ]

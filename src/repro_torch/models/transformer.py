@@ -12,6 +12,7 @@ Public entry points, with the reference's names and semantics:
 
 * :func:`init_params` — weights from an explicit ``torch.Generator``
 * :func:`forward` — full-sequence logits
+* :func:`lm_loss` — the training loss: masked token cross-entropy
 * :func:`init_cache` — decode state, one dict per layer: ``{"k", "v"}``
   for attention, ``{"h", "conv"}`` for RG-LRU, ``{"shift_t", "shift_c",
   "wkv"}`` for RWKV
@@ -33,6 +34,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import LayerKind, ModelConfig
 from .layers import (AttnLayer, decode_gqa_attention, fill_attn_layer,
@@ -40,7 +42,7 @@ from .layers import (AttnLayer, decode_gqa_attention, fill_attn_layer,
 from .rglru import RGLRULayer, fill_rglru_layer
 from .rwkv import HEAD_SIZE, RWKVLayer, fill_rwkv_layer
 
-__all__ = ["Transformer", "init_params", "forward", "init_cache",
+__all__ = ["Transformer", "init_params", "forward", "lm_loss", "init_cache",
            "prefill", "decode_step", "resolve_device"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -158,6 +160,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     return model
 
 
+def _block(layer: nn.Module, h: torch.Tensor, positions: torch.Tensor,
+           local: bool) -> torch.Tensor:
+    """One layer over the full sequence; its cache entries are dropped."""
+    if isinstance(layer, (RGLRULayer, RWKVLayer)):
+        return layer(h)[0]
+    return layer(h, positions, local=local)[0]
+
+
 def forward(params: Transformer, tokens: torch.Tensor,
             cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits.  Returns (logits (B, S, V), aux scalar) —
@@ -165,12 +175,81 @@ def forward(params: Transformer, tokens: torch.Tensor,
     h = params.embed_tokens(tokens)
     positions = torch.arange(h.shape[1], device=h.device)
     for i, layer in enumerate(params.layers):
-        if isinstance(layer, (RGLRULayer, RWKVLayer)):
-            h, _ = layer(h)
-        else:
-            h, _, _ = layer(h, positions, local=params.local(i))
+        h = _block(layer, h, positions, params.local(i))
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     return params.unembed(h), aux
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Token cross-entropy in float32, the max taken out before the exp;
+    labels < 0 are masked.  Returns (sum, count).  The gold logit is a
+    gather (the reference's iota-mask reduction keeps a sharded vocab
+    sharded; one card has nothing to shard): the same value, since the
+    mask picks one logit and adds zeros."""
+    l32 = logits.float()
+    m = torch.amax(l32, dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.sum(torch.exp(l32 - m), dim=-1)) + m[..., 0]
+    mask = labels >= 0
+    gold = torch.gather(l32, -1, labels.clamp(min=0)[..., None])[..., 0]
+    return torch.sum((lse - gold) * mask), mask.sum()
+
+
+def lm_loss(params: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
+            cfg: ModelConfig, prefix: torch.Tensor | None = None,
+            aux_coef: float = 0.01) -> torch.Tensor:
+    """Mean next-token cross-entropy over the labels ≥ 0, plus
+    ``aux_coef`` × the MoE aux term (0 for the ported layer kinds).
+
+    ``cfg.remat == "full"`` recomputes each pattern unit in the backward
+    pass (``torch.utils.checkpoint``), as the reference's scan body is
+    checkpointed; the trailing ``rest`` layers are not, as there.  With
+    ``cfg.ce_seq_chunk`` dividing S the unembedding and CE run chunk by
+    chunk, each chunk checkpointed, so the (B, S, V) logits are never all
+    alive.
+    """
+    if prefix is not None:
+        raise NotImplementedError(
+            "lm_loss: a frontend prefix (internvl2-1b, musicgen-medium) is "
+            "not ported yet")
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"lm_loss: remat {cfg.remat!r}; the port has 'none' and 'full'")
+    h = params.embed_tokens(tokens)
+    S = h.shape[1]
+    positions = torch.arange(S, device=h.device)
+    P = len(cfg.pattern)
+
+    def run(h: torch.Tensor, first: int, n: int) -> torch.Tensor:
+        for i in range(first, first + n):
+            h = _block(params.layers[i], h, positions, params.local(i))
+        return h
+
+    for u in range(cfg.n_units):
+        if cfg.remat == "full":
+            h = checkpoint(run, h, u * P, P, use_reentrant=False)
+        else:
+            h = run(h, u * P, P)
+    h = run(h, cfg.n_units * P, cfg.n_remainder)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    chunk = cfg.ce_seq_chunk
+    if chunk and S > chunk and S % chunk == 0:
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.int64, device=h.device)
+        for c in range(0, S, chunk):
+            s, n = checkpoint(lambda hc, lc: _ce(params.unembed(hc), lc),
+                              h[:, c:c + chunk], labels[:, c:c + chunk],
+                              use_reentrant=False)
+            tot, cnt = tot + s, cnt + n
+    else:
+        tot, cnt = _ce(params.unembed(h), labels)
+    return tot / torch.clamp(cnt, min=1) + aux_coef * aux
 
 
 # ---------------------------------------------------------------------------

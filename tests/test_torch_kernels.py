@@ -5,8 +5,11 @@ in interpret mode, over the sweep of ``tests/test_kernels.py`` with its
 tolerances.  The CUDA kernels themselves (K1 flash attention, K2 the
 RG-LRU scan, K3 the RWKV-6 WKV) are held against their plain versions in
 the ``gpu``-marked tests, which need a card; K1's bf16 kernel (the
-tensor cores) also at the S values around its tiles.  JAX is imported inside the
-CPU tests only: the machine with the card has none."""
+tensor cores) also at the S values around its tiles.  Gradients: each
+kernel's forward with its plain version's backward
+(``ops._KernelWithPlainGrad``) against plain autograd, on the CPU with a
+stand-in kernel and on the card with the real one.  JAX is imported
+inside the CPU tests only: the machine with the card has none."""
 
 import numpy as np
 import pytest
@@ -535,3 +538,141 @@ def test_wkv_kernel_runs_on_the_tensor_cores_in_clusters(cuda):
     for dtype in DTYPES.values():
         info = k3.cluster_info(dtype)
         assert info["cluster_width"] == 2 and info["max_active_clusters"] > 0
+
+
+# -- gradients through the kernels' dispatch ---------------------------------------
+
+
+def _no_grad_kernel(fn):
+    """A stand-in for a CUDA kernel on the CPU: the plain version with no
+    graph, as the ctypes kernels write into fresh tensors."""
+    def kernel(*xs):
+        with torch.no_grad():
+            return fn(*xs)
+    return kernel
+
+
+def _grads_of(outs, inputs, seed=0):
+    """Gradients of a random linear functional of ``outs`` (coefficients
+    drawn on their device from ``seed``) with respect to ``inputs``."""
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    dev = outs[0].device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    loss = sum((o.float() * torch.randn(o.shape, generator=g,
+                                        device=dev)).sum() for o in outs)
+    return torch.autograd.grad(loss, inputs)
+
+
+@pytest.mark.parametrize("op", ["attention", "rglru", "wkv"])
+def test_kernel_function_takes_the_plain_gradient(op):
+    """``ops._KernelWithPlainGrad``: the output of a kernel that builds no
+    graph is attached to autograd, and its gradients are those of the
+    plain version, input by input (None inputs and an output that no
+    input reaches included)."""
+    rng = np.random.default_rng(3)
+
+    def t(*shape, f=lambda x: x):
+        return torch.from_numpy(f(rng.standard_normal(shape))
+                                .astype(np.float32)).requires_grad_(True)
+    if op == "attention":
+        def plain(q, k, v):
+            return ref.attention_ref(q, k, v, window=5, softcap=20.0)
+        inputs = [t(2, 9, 4, 8), t(2, 9, 2, 8), t(2, 9, 2, 8)]
+    elif op == "rglru":
+        plain = ops._rglru_plain
+        inputs = [t(2, 7, 3, f=lambda x: 1 / (1 + np.exp(-x))), t(2, 7, 3),
+                  t(2, 3)]
+    else:
+        plain = ref.wkv6_ref
+        inputs = [t(1, 2, 5, 64) for _ in range(3)] \
+            + [t(1, 2, 5, 64, f=lambda x: np.exp(-np.exp(x - 1))),
+               t(2, 64), None]
+    outs = ops._KernelWithPlainGrad.apply(_no_grad_kernel(plain), plain,
+                                          *inputs)
+    first = outs[0] if isinstance(outs, tuple) else outs
+    assert first.requires_grad
+    wrt = [x for x in inputs if x is not None]
+    got = _grads_of(outs, wrt)
+    want = _grads_of(plain(*inputs), wrt)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    if op == "wkv":         # u alone: the final state does not depend on it
+        u_only = [x.detach() if x is not None else None for x in inputs]
+        u_only[4].requires_grad_(True)
+        outs = ops._KernelWithPlainGrad.apply(_no_grad_kernel(plain), plain,
+                                              *u_only)
+        torch.testing.assert_close(_grads_of(outs, [u_only[4]])[0],
+                                   _grads_of(plain(*u_only), [u_only[4]])[0],
+                                   rtol=0, atol=0)
+
+
+def _card_grads(cuda, fn, plain, inputs):
+    """Gradients through ``fn`` (the dispatch: the kernel's forward) and
+    through ``plain``, of the same functional, on the card."""
+    inputs = [None if x is None else x.to(cuda).requires_grad_(True)
+              for x in inputs]
+    wrt = [x for x in inputs if x is not None]
+    got = _grads_of(fn(*inputs), wrt)
+    want = _grads_of(plain(*inputs), wrt)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D,H,K,window,softcap", [
+    (64, 8, 2, None, None), (64, 8, 2, 16, 20.0), (128, 8, 2, 24, None),
+    (256, 10, 1, None, 20.0)])
+def test_attention_gradient_on_the_card(cuda, D, H, K, window, softcap,
+                                        dtype):
+    td = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(td) for s in ((2, 40, H, D), (2, 40, K, D),
+                                 (2, 40, K, D)))
+    before = fa.launches
+    got, want = _card_grads(
+        cuda, lambda *x: ops.attention(*x, window=window, softcap=softcap),
+        lambda *x: ref.attention_ref(*x, window=window, softcap=softcap),
+        [q, k, v])
+    assert fa.launches == before + 1
+    for g, w in zip(got, want):
+        scale = 2e-2 * float(w.float().abs().max()) \
+            if dtype == "bfloat16" else 1e-5
+        torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 17, 65])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_gradient_on_the_card(cuda, S, with_h0):
+    rng = np.random.default_rng(S)
+    a = torch.from_numpy(1 / (1 + np.exp(-rng.standard_normal((2, S, 64)))))
+    b = torch.from_numpy(rng.standard_normal((2, S, 64)) * 0.1)
+    h0 = torch.from_numpy(rng.standard_normal((2, 64)))
+    inputs = [a.float(), b.float(), h0.float() if with_h0 else None]
+    before = k2.launches
+    got, want = _card_grads(cuda, ops.rglru, ops._rglru_plain, inputs)
+    assert k2.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 17, 65])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv_gradient_on_the_card(cuda, S, with_s0):
+    rng = np.random.default_rng(S)
+
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32))
+    r, k, v = (f(1, 4, S, 64) * 0.5 for _ in range(3))
+    w = torch.exp(-torch.exp(f(1, 4, S, 64) - 1.0))
+    inputs = [r, k, v, w, f(4, 64) * 0.1,
+              f(1, 4, 64, 64) * 0.5 if with_s0 else None]
+    before = k3.launches
+    got, want = _card_grads(cuda, ops.wkv, ref.wkv6_ref, inputs)
+    assert k3.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
