@@ -23,8 +23,15 @@ and no result line is printed):
    window), at prefill, MQA/f32, window, softcap and ragged shapes, and
    at the bf16 kernel's tile edges (S from 1 to 2048 around its 64- and
    128-row tiles at D=64, 128 and 256; windows of 64 and 100; softcap;
-   B=2; G=1, 4 and 10), within ``tests/test_kernels.py``'s tolerance
-   (bf16 2e-2, f32 2e-5);
+   B=2; G=1, 4 and 10), at the dense configs' serving and train shapes
+   (at both of the engine's prompt buckets, S=16 and 32, for every
+   served config: gemma2-9b G=2 D=256 with softcap 50, on its local
+   layers with their 4096 window and on its global ones, also where
+   window and softcap bite; deepseek-coder-33b G=7 and qwen1.5-110b G=8
+   at D=128; musicgen-medium MHA; internvl2-1b G=7 D=64 after its
+   256-row prefix, S = 272, 288 and its train step's B=8 S=384; G=7 and
+   D=256 with softcap in f32), within ``tests/test_kernels.py``'s
+   tolerance (bf16 2e-2, f32 2e-5);
    K2 (the RG-LRU scan) against ``ref.rglru_ref`` at 1e-5 over
    ``tests/test_kernels.py``'s sweep, the serving shapes, S = 1, T−1, T,
    T+1 and 2048 around its chunk T (the one-pass loop and the chunked
@@ -39,9 +46,12 @@ and no result line is printed):
    whole);
 3. times — each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (a yardstick only: the port
-   never calls it), beside the kernel's bound, at the serving shapes (K1
-   also at S=2048 and at the full-width train step's B=8, S=128; K2 and
-   K3 at S=2048); for K1 also its achieved
+   never calls it; ``scaled_dot_product_attention`` takes no softcap, so
+   gemma2-9b's shape has none), beside the kernel's bound, at the serving
+   shapes (K1 also at S=2048, at the full-width train step's B=8, S=128,
+   at gemma2-9b's and deepseek-coder-33b's serving shapes and at
+   internvl2-1b's prefix prefill and train step; K2 and K3 at S=2048);
+   for K1 also its achieved
    TFLOP/s and its share of the bound; for K2 and K3 also the device
    time a launch from a replayed CUDA graph, since back-to-back calls at
    the serving shape time the Python wrapper;
@@ -76,9 +86,34 @@ and no result line is printed):
    the mean of the last two losses below the first two, and K1 launched
    exactly 32 times a step (16 layers, forward and the remat recompute;
    the backward recomputes the plain version).  Prints ms a step
-   (synchronised), tokens/s, model TFLOP/s (6·N·B·S) and peak memory.
+   (synchronised), tokens/s, model TFLOP/s (6·N·B·S) and peak memory;
+10. serve gemma2-9b at full width and depth (42 layers, alternating
+    local/global attention, softcaps, 9.24 B parameters) as phase 4; K1
+    must have launched 42 × prefills; a small float32 gemma2 (head_dim
+    256, untied, nonzero norm and post-norm weights) must give the same
+    logits and greedy tokens on the card as on the CPU, and a small bf16
+    one logits within 2e-2 of their scale;
+11. serve deepseek-coder-33b at full width and depth (62 layers, 62.1
+    GiB of weights), alone on the card after every earlier model is
+    freed; K1 62 × prefills;
+12. serve qwen1.5-110b at full width but 8 of its 80 layers (13.36 B
+    parameters, 24.9 GiB: the full depth's 207 GiB fits no single card;
+    the cut is printed); K1 8 × prefills; a small float32 qwen (head_dim
+    128, nonzero qkv biases) on the card against the CPU;
+13. serve musicgen-medium at full width (48 layers), with no prefix, as
+    the reference's engine serves it; K1 48 × prefills;
+14. internvl2-1b at full width with a frontend prefix: ``prefill`` of a
+    seeded (1, 256, 896) prefix and 16 tokens, 16 ``decode_step``s (the
+    prefill and the decode steps timed apart), held
+    teacher-forced against ``forward`` with the same prefix (the
+    prefill's logits within 2e-2 of their scale, the argmax agreement
+    printed), K1 exactly 24 launches (the prefill's); a small float32
+    internvl2 with a prefix on the card against the CPU; then its
+    ``Trainer`` with the SyntheticLM prefix: global batch 8, 384
+    positions (256 + 128 tokens), 4 steps, every loss finite and K1
+    exactly 48 launches a step (24 layers, forward and remat recompute).
 
-The launch counts of each serving path and of the full-width train run
+The launch counts of each serving path and of each full-width train run
 are set to 0 just before it and read just after; a kernel that the path
 does not run must show 0.  The last two lines are the kernels' JSON
 record and the result line ``{"ok": true, "device": {...}}``.  Needs one
@@ -88,6 +123,7 @@ CUDA device; fails without.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import math
 import subprocess
@@ -155,14 +191,18 @@ def wkv_inputs(torch, B, H, S, *, seed, rkv_dtype=None):
     return r, k, v, w, randn(H, 64) * 0.1, randn(B, H, 64, 64) * 0.5
 
 
-def attention_bound(B, S, H, KV, D, window=None) -> tuple[float, str]:
+def attention_bound(B, S, H, KV, D, window=None,
+                    softcap=None) -> tuple[float, str]:
     """Least time on the card for causal bf16 attention, ms: its
-    operations (4·D per unmasked query-key pair) at the tensor-core
-    peak, or the bytes of q, k, v and o once each at the memory rate,
-    whichever is larger."""
+    operations (4·D per unmasked query-key pair at the tensor-core peak,
+    and with a softcap 3 more a pair — divide, tanh, multiply — at the
+    float32 peak), or the bytes of q, k, v and o once each at the memory
+    rate, whichever is larger."""
     w = S if window is None else min(window, S)
     pairs = sum(min(i + 1, w) for i in range(S))
     ops_s = 4 * B * H * pairs * D / PEAK_BF16_FLOPS
+    if softcap is not None:
+        ops_s += 3 * B * H * pairs / PEAK_F32_FLOPS
     bytes_s = (2 * B * S * H * D + 2 * B * S * KV * D) * 2 / PEAK_BYTES
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s >= bytes_s else "bytes")
@@ -319,6 +359,42 @@ def check_attention(torch, fa, ref) -> float:
         ("G=1 D=64", 1, 200, 8, 8, 64, bf16, None, None, 1.0),
         ("G=4 D=128", 1, 200, 8, 2, 128, bf16, None, None, 1.0),
         ("G=10 D=128", 1, 200, 20, 2, 128, bf16, None, None, 1.0),
+    ]
+    # the dense configs' serving and train shapes: gemma2-9b (G=2, D=256,
+    # softcap 50 on every layer, window 4096 on the local ones: longer
+    # than the prompt, so every key is kept), deepseek-coder-33b (G=7,
+    # D=128), qwen1.5-110b (G=8, D=128), musicgen-medium (MHA, D=64) and
+    # internvl2-1b (G=7, D=64) with its 256-row prefix before a 16- or
+    # 32-token bucket, a ragged last 64-row block; then the same
+    # options where they bite: a window shorter than S, softcap on
+    # scores large enough to saturate, G=7 and D=256 with softcap in f32
+    cases += [
+        ("serve gemma2 S=16 local", 1, 16, 16, 8, 256, bf16, 4096, 50.0,
+         1.0),
+        ("serve gemma2 S=32 local", 1, 32, 16, 8, 256, bf16, 4096, 50.0,
+         1.0),
+        ("serve gemma2 S=32 global", 1, 32, 16, 8, 256, bf16, None, 50.0,
+         1.0),
+        ("gemma2 S=2048 window 1024", 1, 2048, 16, 8, 256, bf16, 1024, 50.0,
+         3.0),
+        ("gemma2 softcap 50 saturated", 2, 300, 16, 8, 256, bf16, 4096,
+         50.0, 6.0),
+        ("serve deepseek S=16", 1, 16, 56, 8, 128, bf16, None, None, 1.0),
+        ("serve deepseek S=32", 1, 32, 56, 8, 128, bf16, None, None, 1.0),
+        ("deepseek G=7 S=300", 2, 300, 56, 8, 128, bf16, None, None, 1.0),
+        ("serve gemma2 S=16 global", 1, 16, 16, 8, 256, bf16, None, 50.0,
+         1.0),
+        ("serve qwen S=16", 1, 16, 64, 8, 128, bf16, None, None, 1.0),
+        ("serve qwen S=32", 1, 32, 64, 8, 128, bf16, None, None, 1.0),
+        ("serve musicgen S=16", 1, 16, 24, 24, 64, bf16, None, None, 1.0),
+        ("serve musicgen S=32", 1, 32, 24, 24, 64, bf16, None, None, 1.0),
+        ("serve internvl2 S=272", 1, 272, 14, 2, 64, bf16, None, None, 1.0),
+        ("serve internvl2 S=288", 1, 288, 14, 2, 64, bf16, None, None, 1.0),
+        ("train internvl2 B=8 S=384", 8, 384, 14, 2, 64, bf16, None, None,
+         1.0),
+        ("G=7 D=64 f32", 1, 272, 14, 2, 64, f32, None, None, 1.0),
+        ("G=7 D=128 f32", 1, 100, 56, 8, 128, f32, None, None, 1.0),
+        ("G=2 D=256 softcap f32", 1, 40, 16, 8, 256, f32, 16, 50.0, 6.0),
     ]
     main_err = 0.0
     for i, (name, B, S, H, KV, D, dt, window, softcap, sc) in \
@@ -492,7 +568,8 @@ def check_wkv(torch, k3, ref) -> float:
 # -- 3. times -----------------------------------------------------------------------
 
 
-def time_attention(torch, fa, ref, B, S, H, KV, D, window=None) -> dict:
+def time_attention(torch, fa, ref, B, S, H, KV, D, window=None,
+                   softcap=None) -> dict:
     from torch.nn import functional as F
     sdpa_gqa = tuple(int(x) for x in torch.__version__.split(".")[:2]) \
         >= (2, 5)
@@ -510,14 +587,16 @@ def time_attention(torch, fa, ref, B, S, H, KV, D, window=None) -> dict:
             & (pos[:, None] - pos[None, :] < window)
 
     def library():
+        if softcap is not None:
+            return None         # sdpa takes no softcap
         if mask is None:
             return F.scaled_dot_product_attention(qt, kt, vt,
                                                   is_causal=True, **gqa_kw)
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                               **gqa_kw)
 
-    o = fa.flash_attention(q, k, v, window=window)
-    o_ref = ref.attention_ref(q, k, v, window=window)
+    o = fa.flash_attention(q, k, v, window=window, softcap=softcap)
+    o_ref = ref.attention_ref(q, k, v, window=window, softcap=softcap)
     tol = TOL["bfloat16"]
     err = (o.float() - o_ref.float()).abs().max().item()
     check(o.shape == o_ref.shape and bool(torch.isfinite(o).all())
@@ -526,27 +605,31 @@ def time_attention(torch, fa, ref, B, S, H, KV, D, window=None) -> dict:
           f"version (max|err| {err:.3e})")
     iters = 200 if S <= 32 else 20
     row = {
-        "ms": time_ms(torch, lambda: fa.flash_attention(q, k, v,
-                                                        window=window),
-                      iters),
+        "ms": time_ms(torch, lambda: fa.flash_attention(
+            q, k, v, window=window, softcap=softcap), iters),
         "plain_ms": time_ms(torch, lambda: ref.attention_ref(
-            q, k, v, window=window), iters),
-        "library_ms": time_ms(torch, library, iters),
+            q, k, v, window=window, softcap=softcap), iters),
+        "library_ms": None if softcap is not None
+        else time_ms(torch, library, iters),
     }
     row["bound_ms"], row["bound_by"] = attention_bound(B, S, H, KV, D,
-                                                       window)
+                                                       window, softcap)
     row["shape"] = (f"B={B} S={S} H={H} KV={KV} D={D} bf16"
-                    + (f" window {window}" if window else ""))
+                    + (f" window {window}" if window else "")
+                    + (f" softcap {softcap:g}" if softcap else ""))
     print(f"[check] K1 timed {row['shape']}: max|err| {err:.3e} "
           f"(rtol=atol={tol:g}) ok")
+    lib = "none (sdpa takes no softcap)" if row["library_ms"] is None \
+        else f"{row['library_ms']:.5f} ms"
     print(f"[time] K1 {row['shape']}: kernel {row['ms']:.5f} ms, plain "
-          f"{row['plain_ms']:.5f} ms, sdpa {row['library_ms']:.5f} ms, "
-          f"bound {row['bound_ms']:.6f} ms ({row['bound_by']})")
+          f"{row['plain_ms']:.5f} ms, sdpa {lib}, bound "
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
     w = S if window is None else min(window, S)
     flops = 4 * B * H * D * sum(min(i + 1, w) for i in range(S))
+    lib = "" if row["library_ms"] is None \
+        else f" (sdpa {flops / row['library_ms'] / 1e9:.2f})"
     print(f"[time] K1 {row['shape']}: {flops / row['ms'] / 1e9:.2f} TFLOP/s "
-          f"achieved (sdpa {flops / row['library_ms'] / 1e9:.2f}), "
-          f"{row['bound_ms'] / row['ms']:.4f} of the bound")
+          f"achieved{lib}, {row['bound_ms'] / row['ms']:.4f} of the bound")
     return row
 
 
@@ -601,21 +684,38 @@ def time_wkv(torch, k3, ref, B, H, S, *, zero_s0: bool) -> dict:
 # -- 4.-6. serving ----------------------------------------------------------------
 
 
+def free_card(torch) -> None:
+    """Return the memory of the models and engines that went out of scope
+    (their event buses hold reference cycles) to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def serve_full_width(torch, arch: str, kernels: dict, expect: dict,
-                     tag: str) -> dict:
-    """Serve ``arch`` at full width through the launcher's code path;
-    returns the launch counts of the run, read just after it."""
+                     tag: str, n_layers: int | None = None) -> dict:
+    """Serve ``arch`` at full width through the launcher's code path —
+    at its full depth, or cut to ``n_layers`` where the weights do not
+    fit one card; returns the launch counts of the run, read just after
+    it."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import report, serve
     from repro_torch.models import forward, init_params
 
     cfg = get_config(arch)
     check(cfg.param_dtype == "bfloat16", f"unexpected {arch} config")
+    if n_layers is not None:
+        full = cfg.param_count()[0]
+        cfg = cfg.replace(n_layers=n_layers)
+        print(f"[{tag}] depth cut to {n_layers} of {get_config(arch).n_layers}"
+              f" layers: {full / 1e9:.2f} B parameters, "
+              f"{full * 2 / 2**30:.1f} GiB of bf16 weights at full depth, "
+              "do not fit one card")
     params = init_params(cfg, device="cuda", seed=0)
-    print(f"[{tag}] {cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
-          f"{cfg.vocab}, {cfg.param_dtype}: "
-          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
-          "parameters")
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"[{tag}] {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.kv_heads}, head_dim {cfg.head_dim}, vocab "
+          f"{cfg.vocab}, {cfg.param_dtype}: {n_params / 1e9:.3f} B "
+          f"parameters, {n_params * 2 / 2**30:.2f} GiB")
     serve(cfg, requests=2, max_batch=4, max_new=2, seed=1,
           params=params)                                      # warm-up
     torch.cuda.reset_peak_memory_stats()
@@ -665,27 +765,53 @@ def serve_full_width(torch, arch: str, kernels: dict, expect: dict,
     return launches
 
 
-def small_model_on_card_and_cpu(torch, arch: str, tag: str,
-                                **overrides) -> None:
-    """A small float32 model: the card (kernels) against the CPU
-    (plain versions), logits and greedy tokens."""
+def _small_model(torch, arch: str, dtype: str, nonzero: bool, overrides):
+    """A small model of ``arch``; with ``nonzero`` the leaves that the
+    init leaves at zero (``ZERO_INIT``: norm weights and qkv biases) are
+    drawn nonzero, so that a bias or a post-norm the card path dropped
+    would show."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.models import forward, init_params
-    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import ZERO_INIT
 
-    small = get_smoke_config(arch).replace(param_dtype="float32",
-                                           **overrides)
+    small = get_smoke_config(arch).replace(param_dtype=dtype, **overrides)
     cpu_model = init_params(small, torch.Generator().manual_seed(0),
                             device="cpu")
-    gpu_model = copy.deepcopy(cpu_model).to("cuda")
-    toks = torch.randint(0, small.vocab, (2, 24),
-                         generator=torch.Generator().manual_seed(1))
+    if nonzero:
+        g = torch.Generator().manual_seed(2)
+        with torch.no_grad():
+            for name, p in cpu_model.named_parameters():
+                if name.rpartition(".")[2] in ZERO_INIT:
+                    p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, small.vocab, (2, 24), generator=g)
+    prefix = None
+    if small.frontend_len:
+        prefix = torch.randn((2, small.frontend_len, small.d_model),
+                             generator=g)
+    return small, cpu_model, copy.deepcopy(cpu_model).to("cuda"), toks, \
+        prefix
+
+
+def small_model_on_card_and_cpu(torch, arch: str, tag: str,
+                                nonzero: bool = False, **overrides) -> None:
+    """A small float32 model: the card (kernels) against the CPU
+    (plain versions), logits (after a frontend prefix where the config
+    has one) and greedy tokens."""
+    from repro_torch.models import forward
+    from repro_torch.serving import Request, ServingEngine
+
+    small, cpu_model, gpu_model, toks, prefix = _small_model(
+        torch, arch, "float32", nonzero, overrides)
     with torch.no_grad():
-        l_cpu, _ = forward(cpu_model, toks, small)
-        l_gpu, _ = forward(gpu_model, toks.cuda(), small)
+        l_cpu, _ = forward(cpu_model, toks, small, prefix=prefix)
+        l_gpu, _ = forward(gpu_model, toks.cuda(), small,
+                           prefix=None if prefix is None else prefix.cuda())
     err = (l_gpu.cpu() - l_cpu).abs().max().item()
-    print(f"[{tag}] small f32 model logits, card vs CPU: max|err| "
-          f"{err:.3e} (1e-4)")
+    print(f"[{tag}] small f32 model logits"
+          + ("" if prefix is None else
+             f" after a {small.frontend_len}-position prefix")
+          + f", card vs CPU: max|err| {err:.3e} (1e-4)")
     check(err <= 1e-4, f"{arch}: small model logits differ between card "
                        "and CPU")
     prompts = [[5, 9, 2, 7], [1, 2, 3], [4, 5, 6, 7, 8], [9, 10],
@@ -705,21 +831,16 @@ def small_model_on_card_and_cpu(torch, arch: str, tag: str,
 
 
 def small_bf16_model_on_card_and_cpu(torch, fa, arch: str, tag: str,
+                                     nonzero: bool = False,
                                      **overrides) -> None:
     """A small bf16 model: the card (K1 on the tensor cores) against the
     CPU (plain versions), logits within 2e-2 of the logits' scale, as
     tests/test_torch_model.py holds bf16.  Greedy tokens are not compared:
     bf16 rounds differently on the two devices and near-ties flip."""
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.models import forward, init_params
+    from repro_torch.models import forward
 
-    small = get_smoke_config(arch).replace(param_dtype="bfloat16",
-                                           **overrides)
-    cpu_model = init_params(small, torch.Generator().manual_seed(0),
-                            device="cpu")
-    gpu_model = copy.deepcopy(cpu_model).to("cuda")
-    toks = torch.randint(0, small.vocab, (2, 24),
-                         generator=torch.Generator().manual_seed(1))
+    small, cpu_model, gpu_model, toks, _ = _small_model(
+        torch, arch, "bfloat16", nonzero, overrides)
     with torch.no_grad():
         l_cpu, _ = forward(cpu_model, toks, small)
         fa.launches = 0
@@ -935,32 +1056,33 @@ def check_update(torch, trainer, tag: str,
     check(moved > 0, f"{tag}: no checked element moved visibly")
 
 
-def train_full_width(torch, kernels: dict, tag: str) -> dict:
-    """The port's Trainer on llama3.2-1b at full width; returns the
-    launch counts of the run, read just after it."""
+def run_trainer(torch, kernels: dict, tag: str, arch: str, tcfg):
+    """The port's Trainer on ``arch`` at full width for ``tcfg.steps``
+    steps; prints ms a step (synchronised), tokens/s, model TFLOP/s
+    (6·N·B·S, the prefix counted in S) and peak memory.  Returns the
+    trainer, its history and the launch counts of the run, read just
+    after it."""
     from repro_torch.configs import get_config
-    from repro_torch.train.steps import StepConfig
-    from repro_torch.train.trainer import Trainer, TrainerConfig
+    from repro_torch.train.trainer import Trainer
 
-    cfg = get_config("llama3.2-1b")
+    cfg = get_config(arch)
     check(cfg.param_dtype == "bfloat16" and cfg.remat == "full",
-          "unexpected llama3.2-1b config")
+          f"unexpected {arch} config")
     torch.cuda.reset_peak_memory_stats()
-    tcfg = TrainerConfig(steps=6, global_batch=8, seq_len=128, log_every=1,
-                         step=StepConfig(accum=1, warmup=2))
     trainer = Trainer(cfg, tcfg, device="cuda")
     n_params = sum(p.numel() for p in trainer.params.parameters())
     print(f"[{tag}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{n_params / 1e9:.3f} B parameters ({cfg.param_dtype}), AdamW "
-          f"state {trainer.tcfg.opt.state_dtype}, grads "
-          f"{trainer.tcfg.step.grad_dtype}, remat {cfg.remat}")
+          f"state {tcfg.opt.state_dtype}, grads {tcfg.step.grad_dtype}, "
+          f"remat {cfg.remat}; global batch {tcfg.global_batch}, "
+          f"{tcfg.seq_len} positions a row"
+          + (f" ({cfg.frontend_len} of them the frontend prefix)"
+             if cfg.frontend_len else ""))
     for mod in kernels.values():
         mod.launches = 0
     hist = trainer.run()
     launches = {name: mod.launches for name, mod in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
-    check_update(torch, trainer, tag)
-    trainer.close()
     losses = [h["loss"] for h in hist]
     norms = [h["grad_norm"] for h in hist]
     dts = [h["dt"] for h in hist]
@@ -970,19 +1092,139 @@ def train_full_width(torch, kernels: dict, tag: str) -> dict:
     print(f"[{tag}] losses {[round(x, 5) for x in losses]}, grad norms "
           f"{[round(x, 4) for x in norms]}")
     print(f"[{tag}] ms a step (synchronised) "
-          f"{[round(d * 1e3, 3) for d in dts]}; steps 3-6: "
+          f"{[round(d * 1e3, 3) for d in dts]}; steps 3-{len(dts)}: "
           f"{steady * 1e3:.3f} ms, {tokens / steady:.1f} tokens/s, "
           f"{flops / steady / 1e12:.2f} model TFLOP/s (6·N·B·S = "
           f"{flops:.4e}); peak memory {peak / 2**30:.2f} GiB; kernel "
           f"launches {launches}")
     check(all(math.isfinite(x) for x in losses + norms),
           "a loss or grad norm is not finite")
-    check(sum(losses[-2:]) < sum(losses[:2]),
-          f"the loss did not fall: {losses}")
     want = {"flash_attention": 2 * cfg.n_layers * len(hist),
             "rglru_scan": 0, "wkv6": 0}
     check(launches == want, f"{tag}: kernel launches {launches}, want "
-                            f"{want} (K1 32 a step)")
+                            f"{want} (K1 {2 * cfg.n_layers} a step: "
+                            "forward and remat recompute)")
+    return trainer, losses, launches
+
+
+def train_full_width(torch, kernels: dict, tag: str) -> dict:
+    """The port's Trainer on llama3.2-1b at full width, then one more
+    step held against AdamW in float64; returns the launch counts of the
+    run, read just after it."""
+    from repro_torch.train.steps import StepConfig
+    from repro_torch.train.trainer import TrainerConfig
+
+    tcfg = TrainerConfig(steps=6, global_batch=8, seq_len=128, log_every=1,
+                         step=StepConfig(accum=1, warmup=2))
+    trainer, losses, launches = run_trainer(torch, kernels, tag,
+                                            "llama3.2-1b", tcfg)
+    check_update(torch, trainer, tag)
+    trainer.close()
+    check(sum(losses[-2:]) < sum(losses[:2]),
+          f"the loss did not fall: {losses}")
+    return launches
+
+
+# -- 10.-14. the dense configs -----------------------------------------------------
+
+
+def serve_with_prefix(torch, kernels: dict, tag: str) -> dict:
+    """internvl2-1b at full width with a frontend prefix, through the
+    entry points that take one (``prefill`` and ``decode_step``; the
+    engine, as the reference's, takes none): a seeded (1, 256, 896)
+    prefix and a 16-token prompt, then 16 greedy decode steps, held
+    teacher-forced against ``forward`` with the same prefix.  Returns the
+    launch counts of the prefill and the steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, forward, init_params, prefill
+
+    cfg = get_config("internvl2-1b")
+    F, T, n_new = cfg.frontend_len, 16, 16
+    params = init_params(cfg, device="cuda", seed=0)
+    print(f"[{tag}] {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.kv_heads}, head_dim {cfg.head_dim}: "
+          f"{sum(p.numel() for p in params.parameters()) / 1e9:.3f} B "
+          f"parameters; prefix ({1}, {F}, {cfg.d_model}), {T} prompt tokens")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    # SyntheticLM's scale for a frontend's embeddings
+    prefix = (torch.randn((1, F, cfg.d_model), generator=g, device="cuda")
+              * 0.02).to(torch.bfloat16)
+    prompt = torch.randint(0, cfg.vocab, (1, T), generator=g, device="cuda")
+
+    def generate():
+        """The greedy tokens, the logits of each step, and the seconds of
+        the prefill and of the decode steps (``int`` of an argmax waits
+        for the card)."""
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, prompt, cfg, max_len=F + T + n_new,
+                                prefix=prefix)
+        out, steps = [int(torch.argmax(logits[0, :cfg.vocab]))], [logits[0]]
+        t1 = time.perf_counter()
+        for i in range(n_new):
+            lg, cache = decode_step(
+                params, torch.tensor([out[-1]], device="cuda"),
+                torch.tensor(F + T + i, device="cuda"), cache, cfg)
+            steps.append(lg[0])
+            out.append(int(torch.argmax(lg[0, :cfg.vocab])))
+        return out, torch.stack(steps), t1 - t0, time.perf_counter() - t1
+
+    with torch.no_grad():
+        generate()                                          # warm-up
+        torch.cuda.synchronize()
+        for mod in kernels.values():
+            mod.launches = 0
+        out, step_logits, t_prefill, t_decode = generate()
+        launches = {name: mod.launches for name, mod in kernels.items()}
+        toks = torch.cat([prompt, torch.tensor([out[:-1]], device="cuda")],
+                         dim=1)
+        full, _ = forward(params, toks, cfg, prefix=prefix)
+    print(f"[{tag}] prefill ({F} + {T} positions) {t_prefill * 1e3:.1f} ms, "
+          f"{n_new} decode steps {t_decode * 1e3:.1f} ms "
+          f"({n_new / t_decode:.1f} tok/s decoding), kernel launches "
+          f"{launches}")
+    check(full.shape == (1, F + T + n_new, cfg.padded_vocab())
+          and bool(torch.isfinite(full).all())
+          and bool(torch.isfinite(step_logits).all()),
+          f"{tag}: logits {tuple(full.shape)} not finite")
+    check(all(0 <= t < cfg.vocab for t in out), "a token outside the "
+                                                "vocabulary")
+    check(launches == {"flash_attention": cfg.n_layers, "rglru_scan": 0,
+                       "wkv6": 0},
+          f"{tag}: kernel launches {launches}, want K1 {cfg.n_layers} (the "
+          "prefill's) and no other")
+    # the prefill's logits are the forward's at the prompt's last position
+    # (the same layers over the same positions; bf16 GEMMs of other
+    # shapes round apart)
+    want = full[0, F + T - 1].float()
+    err = (step_logits[0].float() - want).abs().max().item()
+    scale = want.abs().max().item()
+    print(f"[{tag}] prefill logits against forward's at position "
+          f"{F + T - 1}: max|err| {err:.3e} (2e-2 of the scale {scale:.3f})")
+    check(err <= 2e-2 * scale, f"{tag}: the prefill's logits are not the "
+                               "forward's")
+    lg = full[0, F + T - 1:, :cfg.vocab].float()
+    chosen = torch.tensor(out, device="cuda")
+    gap = lg.max(-1).values - lg.gather(-1, chosen[:, None])[:, 0]
+    same = int((lg.argmax(-1) == chosen).sum())
+    print(f"[{tag}] teacher-forced, forward's argmax equals the decoded "
+          f"token at {same}/{len(out)} steps; largest gap "
+          f"{gap.max().item():.4f} (logits up to "
+          f"{lg.abs().max().item():.2f})")
+    return launches
+
+
+def train_with_prefix(torch, kernels: dict, tag: str) -> dict:
+    """The port's Trainer on internvl2-1b at full width with its
+    SyntheticLM prefix: global batch 8, 384 positions (256 prefix + 128
+    tokens), 4 steps.  Returns the launch counts of the run."""
+    from repro_torch.train.steps import StepConfig
+    from repro_torch.train.trainer import TrainerConfig
+
+    tcfg = TrainerConfig(steps=4, global_batch=8, seq_len=384, log_every=1,
+                         step=StepConfig(accum=1, warmup=2))
+    trainer, _, launches = run_trainer(torch, kernels, tag, "internvl2-1b",
+                                       tcfg)
+    trainer.close()
     return launches
 
 
@@ -1017,6 +1259,11 @@ def main() -> int:
     time_attention(torch, fa, ref, 1, 23, 10, 1, 256, window=2048)
     time_attention(torch, fa, ref, 1, 2048, 10, 1, 256, window=2048)
     time_attention(torch, fa, ref, 8, 128, 32, 8, 64)       # train step
+    time_attention(torch, fa, ref, 1, 32, 16, 8, 256, window=4096,
+                   softcap=50.0)                          # gemma2-9b
+    time_attention(torch, fa, ref, 1, 32, 56, 8, 128)      # deepseek-33b
+    time_attention(torch, fa, ref, 1, 288, 14, 2, 64)      # internvl2-1b
+    time_attention(torch, fa, ref, 8, 384, 14, 2, 64)      # its train step
     t_k2 = time_scan(torch, k2, ref, 1, 23, 2560)
     time_scan(torch, k2, ref, 1, 2048, 2560)
     t_k3 = time_wkv(torch, k3, ref, 1, 64, 23, zero_s0=True)
@@ -1054,9 +1301,47 @@ def main() -> int:
     train_step_on_card_and_cpu(torch, fa, "float32")
     train_step_on_card_and_cpu(torch, fa, "bfloat16")
     train = train_full_width(torch, kernels, "train llama3.2-1b")
+    free_card(torch)
+
+    gemma = serve_full_width(torch, "gemma2-9b", kernels,
+                             {"flash_attention": 42, "rglru_scan": 0,
+                              "wkv6": 0}, "serve gemma2-9b")
+    # head_dim 256 so that K1 runs; untied, as recurrentgemma-2b above
+    small_model_on_card_and_cpu(
+        torch, "gemma2-9b", "serve gemma2-9b", nonzero=True, head_dim=256,
+        tie_embeddings=False)
+    small_bf16_model_on_card_and_cpu(
+        torch, fa, "gemma2-9b", "serve gemma2-9b", nonzero=True,
+        head_dim=256, tie_embeddings=False)
+    free_card(torch)
+    # 62.1 GiB of weights: alone on the card
+    deepseek = serve_full_width(torch, "deepseek-coder-33b", kernels,
+                                {"flash_attention": 62, "rglru_scan": 0,
+                                 "wkv6": 0}, "serve deepseek-coder-33b")
+    free_card(torch)
+    qwen = serve_full_width(torch, "qwen1.5-110b", kernels,
+                            {"flash_attention": 8, "rglru_scan": 0,
+                             "wkv6": 0}, "serve qwen1.5-110b", n_layers=8)
+    small_model_on_card_and_cpu(torch, "qwen1.5-110b", "serve qwen1.5-110b",
+                                nonzero=True, head_dim=128)
+    free_card(torch)
+    musicgen = serve_full_width(torch, "musicgen-medium", kernels,
+                                {"flash_attention": 48, "rglru_scan": 0,
+                                 "wkv6": 0}, "serve musicgen-medium")
+    free_card(torch)
+    internvl = serve_with_prefix(torch, kernels, "internvl2-1b prefix")
+    small_model_on_card_and_cpu(torch, "internvl2-1b", "internvl2-1b prefix",
+                                nonzero=True, head_dim=64)
+    free_card(torch)
+    train_internvl = train_with_prefix(torch, kernels, "train internvl2-1b")
 
     paths = {"llama3.2-1b": llama, "recurrentgemma-2b": rgemma,
-             "rwkv6-7b": rwkv, "train llama3.2-1b": train}
+             "rwkv6-7b": rwkv, "train llama3.2-1b": train,
+             "gemma2-9b": gemma, "deepseek-coder-33b": deepseek,
+             "qwen1.5-110b (8 of 80 layers)": qwen,
+             "musicgen-medium": musicgen,
+             "internvl2-1b prefix prefill + decode": internvl,
+             "train internvl2-1b": train_internvl}
 
     def row(name, src, replaces, err, t):
         return {"name": name, "route": "cuda",

@@ -2,8 +2,12 @@
 
 Each module exposes ``CONFIG`` (the published configuration) and
 ``smoke_config()`` (a reduced same-family config for CPU tests), as in
-:mod:`repro.configs`.  llama3.2-1b, recurrentgemma-2b and rwkv6-7b are
-ported so far.
+:mod:`repro.configs`.  Eight of its ten archs are ported: the dense
+attention ones (llama3.2-1b; gemma2-9b, with alternating local/global
+layers and softcaps; qwen1.5-110b, with qkv biases; deepseek-coder-33b;
+and internvl2-1b and musicgen-medium, which take a frontend ``prefix``),
+recurrentgemma-2b and rwkv6-7b.  The MoE archs (mixtral-8x22b,
+llama4-maverick-400b-a17b) are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,7 +18,12 @@ from ..models.config import ModelConfig
 
 #: canonical ids (CLI, exactly as in the reference) → module names
 ARCH_IDS = {
+    "internvl2-1b": "internvl2_1b",
+    "gemma2-9b": "gemma2_9b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
     "llama3.2-1b": "llama3_2_1b",
+    "qwen1.5-110b": "qwen1_5_110b",
+    "musicgen-medium": "musicgen_medium",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "rwkv6-7b": "rwkv6_7b",
 }

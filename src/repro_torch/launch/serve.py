@@ -3,8 +3,15 @@ card.  The port of :mod:`repro.launch.serve`, with a ``--device`` flag:
 
     python -m repro_torch.launch.serve --arch llama3.2-1b \\
         --requests 16 --policy prediction
+    python -m repro_torch.launch.serve --arch gemma2-9b
     python -m repro_torch.launch.serve --arch recurrentgemma-2b
     python -m repro_torch.launch.serve --arch rwkv6-7b
+
+``--arch`` takes every id of :data:`repro_torch.configs.ARCH_IDS`.  At
+full depth qwen1.5-110b (≈ 207 GiB of bf16 weights) does not fit one
+80 GB card, and deepseek-coder-33b (≈ 62 GiB) fits with little room.
+internvl2-1b and musicgen-medium are served on their tokens alone, with
+no frontend prefix, as the reference's engine serves them.
 """
 
 from __future__ import annotations

@@ -7,6 +7,12 @@ unless ``--device cpu``:
 
 ``--smoke`` runs the reduced same-family config; without it the full
 published config (llama3.2-1b fits one H100 with its f32 AdamW state).
+``--arch`` takes every id of :data:`repro_torch.configs.ARCH_IDS`.  The
+frontend configs spend ``frontend_len`` of ``--seq-len`` on their prefix,
+so internvl2-1b needs ``--seq-len`` above 256 and musicgen-medium above
+128 (the Trainer refuses less):
+
+    python -m repro_torch.launch.train --arch internvl2-1b --seq-len 384
 """
 
 from __future__ import annotations
@@ -24,7 +30,10 @@ def main() -> None:
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--global-batch", type=int, default=8)
-    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--seq-len", type=int, default=128,
+                    help="positions a row, the frontend prefix included: "
+                         "internvl2-1b needs more than 256, "
+                         "musicgen-medium more than 128")
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--compress", action="store_true")

@@ -26,7 +26,7 @@ from ..kernels import ops
 __all__ = [
     "rmsnorm", "rope", "gqa_attention", "decode_gqa_attention",
     "mlp_apply", "MLP", "AttnLayer", "init_mlp", "init_attn_layer",
-    "fill_attn_layer",
+    "fill_attn_layer", "ZERO_INIT",
 ]
 
 
@@ -233,6 +233,12 @@ class AttnLayer(nn.Module):
         o = gqa_attention(q, k, v, window=window,
                           softcap=self.cfg.attn_softcap)
         return self.finish(h, o), k, v
+
+
+#: leaves that the init leaves at zero, in both packages: the norm
+#: weights (each norm scales by 1 + w) and the qkv biases
+ZERO_INIT = ("ln1", "ln2", "ln1_post", "ln2_post", "final_ln", "bq", "bk",
+             "bv")
 
 
 @torch.no_grad()

@@ -4,9 +4,16 @@
 The reference stacks the weights of each pattern position over depth and
 scans over them; the port holds one :class:`AttnLayer`,
 :class:`RGLRULayer` or :class:`RWKVLayer` per layer in an
-``nn.ModuleList`` and loops.  Dense attention (llama3.2-1b), the RG-LRU
-hybrid (recurrentgemma-2b) and RWKV-6 (rwkv6-7b) are ported so far; MoE
-layers raise.
+``nn.ModuleList`` and loops.  Dense attention (llama3.2-1b, gemma2-9b's
+alternating local/global layers, qwen1.5-110b, deepseek-coder-33b,
+internvl2-1b, musicgen-medium), the RG-LRU hybrid (recurrentgemma-2b) and
+RWKV-6 (rwkv6-7b) are ported so far; MoE layers raise.
+
+A frontend ``prefix`` (internvl2-1b's patch embeddings, musicgen-medium's
+frame embeddings: (B, F, d_model)) is taken by :func:`forward`,
+:func:`lm_loss` and :func:`prefill` as in the reference: it is cast to
+the model's dtype and put before the (scaled) token embeddings, and the
+positions run from 0 over prefix and tokens alike.
 
 Public entry points, with the reference's names and semantics:
 
@@ -110,10 +117,15 @@ class Transformer(nn.Module):
     def local(self, i: int) -> bool:
         return self.cfg.layer_is_local(i % len(self.cfg.pattern))
 
-    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+    def embed_tokens(self, tokens: torch.Tensor,
+                     prefix: torch.Tensor | None = None) -> torch.Tensor:
+        """Token embeddings (scaled by √d where the config says so),
+        after ``prefix`` (B, F, d) where one is given."""
         h = self.embed[tokens]
         if self.cfg.embed_scale:
             h = h * torch.tensor(math.sqrt(self.cfg.d_model), dtype=h.dtype)
+        if prefix is not None:
+            h = torch.cat([prefix.to(h.dtype), h], dim=1)
         return h
 
     def unembed(self, h: torch.Tensor) -> torch.Tensor:
@@ -168,11 +180,13 @@ def _block(layer: nn.Module, h: torch.Tensor, positions: torch.Tensor,
     return layer(h, positions, local=local)[0]
 
 
-def forward(params: Transformer, tokens: torch.Tensor,
-            cfg: ModelConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
+            prefix: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits.  Returns (logits (B, S, V), aux scalar) —
-    aux is the MoE loss term, 0 for dense layers."""
-    h = params.embed_tokens(tokens)
+    aux is the MoE loss term, 0 for dense layers.  With a ``prefix``
+    (B, F, d), S = F + the tokens' length."""
+    h = params.embed_tokens(tokens, prefix)
     positions = torch.arange(h.shape[1], device=h.device)
     for i, layer in enumerate(params.layers):
         h = _block(layer, h, positions, params.local(i))
@@ -205,6 +219,8 @@ def lm_loss(params: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
             aux_coef: float = 0.01) -> torch.Tensor:
     """Mean next-token cross-entropy over the labels ≥ 0, plus
     ``aux_coef`` × the MoE aux term (0 for the ported layer kinds).
+    With a ``prefix`` (B, F, d) the labels are (B, F + S_tok), −1 over
+    the prefix, as :class:`repro_torch.data.SyntheticLM` makes them.
 
     ``cfg.remat == "full"`` recomputes each pattern unit in the backward
     pass (``torch.utils.checkpoint``), as the reference's scan body is
@@ -213,14 +229,10 @@ def lm_loss(params: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
     chunk, each chunk checkpointed, so the (B, S, V) logits are never all
     alive.
     """
-    if prefix is not None:
-        raise NotImplementedError(
-            "lm_loss: a frontend prefix (internvl2-1b, musicgen-medium) is "
-            "not ported yet")
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(
             f"lm_loss: remat {cfg.remat!r}; the port has 'none' and 'full'")
-    h = params.embed_tokens(tokens)
+    h = params.embed_tokens(tokens, prefix)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)
     P = len(cfg.pattern)
@@ -357,25 +369,32 @@ def decode_step(params: Transformer, token: torch.Tensor, pos: torch.Tensor,
 
 def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             max_len: int | None = None,
-            return_all_logits: bool = False, *, length: int | None = None
+            return_all_logits: bool = False, *, length: int | None = None,
+            prefix: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, list[dict]]:
     """Forward over a prompt, returning (last-token logits, filled cache)
     — or all logits with ``return_all_logits``.
 
-    ``length`` is the prompt's true length L when ``tokens`` is
-    right-padded to a bucket (default: all S positions are real).  Each
-    attention ring is filled from real positions only: [max(0, L − Sc),
-    L), each at slot position % Sc, so pad keys never enter a ring.
+    A ``prefix`` (B, F, d) goes before the tokens, as in :func:`forward`:
+    S counts it, and decode continues at position F + the prompt's
+    length.  ``length`` is the number of real tokens when ``tokens`` is
+    right-padded to a bucket (default: all of them), so the true length
+    is L = F + ``length``.  Each attention ring is filled from real
+    positions only: [max(0, L − Sc), L), each at slot position % Sc, so
+    pad keys never enter a ring.
 
     The reference recomputes k/v to fill the cache; the port stores the
     k/v the attention already computed, which are the same tensors.
     """
-    B, S = tokens.shape
-    L = S if length is None else length
-    if not 1 <= L <= S:
-        raise ValueError(f"prefill: length {length} for {S} positions")
+    B, S_tok = tokens.shape
+    F = 0 if prefix is None else prefix.shape[1]
+    S = F + S_tok
+    n_tok = S_tok if length is None else length
+    if not 1 <= n_tok <= S_tok:
+        raise ValueError(f"prefill: length {length} for {S_tok} tokens")
+    L = F + n_tok
     max_len = max_len or S
-    h = params.embed_tokens(tokens)
+    h = params.embed_tokens(tokens, prefix)
     positions = torch.arange(S, device=h.device)
     cache = init_cache(cfg, B, max_len, device=h.device)
     for i, (layer, c) in enumerate(zip(params.layers, cache)):

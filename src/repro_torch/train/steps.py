@@ -48,18 +48,19 @@ def grads_of(params: Transformer, cfg: ModelConfig, batch: dict,
 
     Makes ``params`` trainable.  Each microbatch's gradients come from
     ``torch.autograd.grad``, are cast to ``grad_dtype`` and added there.
+    Microbatch ``a`` takes ``batch["prefix"][a]`` where the batch has a
+    prefix, as the reference's scan does.
     """
-    if batch.get("prefix") is not None:
-        raise NotImplementedError(
-            "train_step: frontend prefixes are not ported yet")
     gdt = _DTYPES[step_cfg.grad_dtype]
     params.requires_grad_(True)
     named = dict(params.named_parameters())
     tokens, labels = batch["tokens"], batch["labels"]
+    prefix = batch.get("prefix")
     loss, grads = 0.0, {}
     # as the reference: accum 1 takes the first microbatch only
     for a in range(tokens.shape[0] if step_cfg.accum > 1 else 1):
-        l_a = lm_loss(params, tokens[a], labels[a], cfg)
+        l_a = lm_loss(params, tokens[a], labels[a], cfg,
+                      prefix=None if prefix is None else prefix[a])
         g_a = torch.autograd.grad(l_a, list(named.values()))
         loss = loss + l_a.detach()
         for k, g in zip(named, g_a):
@@ -115,8 +116,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     parameters are made trainable here); ``opt_state``: from
     :func:`repro_torch.optim.adamw_init`, keyed by parameter name, plus
     ``"ef"`` with ``compress``; ``batch``: ``{"tokens": (A, B, S) int,
-    "labels": (A, B, S) int}`` on the model's device — A = accumulation
-    steps.  ``metrics``: ``loss``, ``grad_norm`` and ``lr_scale``,
+    "labels": (A, B, S) int[, "prefix": (A, B, F, d)]}`` on the model's
+    device — A = accumulation steps, S = F + S_tok.  ``metrics``: ``loss``, ``grad_norm`` and ``lr_scale``,
     float32 scalars.
     """
 

@@ -54,6 +54,14 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
                  device: str | torch.device = "cuda") -> None:
+        if tcfg.seq_len <= cfg.frontend_len:
+            # SyntheticLM makes seq_len − frontend_len tokens a row: none
+            # leaves every label masked, fewer than none kills its thread
+            # and the first batch never comes.
+            raise ValueError(
+                f"{cfg.name}: seq_len {tcfg.seq_len} leaves no tokens after "
+                f"the {cfg.frontend_len}-position frontend prefix; pass a "
+                f"seq_len above {cfg.frontend_len}")
         self.cfg = cfg
         self.tcfg = tcfg
         self.device = resolve_device(device)

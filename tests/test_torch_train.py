@@ -156,8 +156,6 @@ def test_lm_loss_refuses_what_is_not_ported(weights):
     toks = torch.zeros((1, 8), dtype=torch.long)
     with pytest.raises(NotImplementedError, match="remat 'dots'"):
         lm_loss(model, toks, toks, cfg.replace(remat="dots"))
-    with pytest.raises(NotImplementedError, match="prefix"):
-        lm_loss(model, toks, toks, cfg, prefix=torch.zeros(1, 2, 64))
 
 
 # -- the train step ----------------------------------------------------------------
