@@ -30,8 +30,11 @@ and no result line is printed):
    window and softcap bite; deepseek-coder-33b G=7 and qwen1.5-110b G=8
    at D=128; musicgen-medium MHA; internvl2-1b G=7 D=64 after its
    256-row prefix, S = 272, 288 and its train step's B=8 S=384; G=7 and
-   D=256 with softcap in f32), within ``tests/test_kernels.py``'s
-   tolerance (bf16 2e-2, f32 2e-5);
+   D=256 with softcap in f32; and the MoE configs' G = 5 and 6 at
+   D=128: llama4-maverick H=40 KV=8 and mixtral-8x22b H=48 KV=8 with its
+   4096 window, at S=16 and 32 in bf16 and f32, and at S=300 with a
+   window that bites), within ``tests/test_kernels.py``'s tolerance
+   (bf16 2e-2, f32 2e-5);
    K2 (the RG-LRU scan) against ``ref.rglru_ref`` at 1e-5 over
    ``tests/test_kernels.py``'s sweep, the serving shapes, S = 1, T−1, T,
    T+1 and 2048 around its chunk T (the one-pass loop and the chunked
@@ -49,8 +52,9 @@ and no result line is printed):
    never calls it; ``scaled_dot_product_attention`` takes no softcap, so
    gemma2-9b's shape has none), beside the kernel's bound, at the serving
    shapes (K1 also at S=2048, at the full-width train step's B=8, S=128,
-   at gemma2-9b's and deepseek-coder-33b's serving shapes and at
-   internvl2-1b's prefix prefill and train step; K2 and K3 at S=2048);
+   at gemma2-9b's, deepseek-coder-33b's, llama4-maverick's and
+   mixtral-8x22b's serving shapes and at internvl2-1b's prefix prefill
+   and train step; K2 and K3 at S=2048);
    for K1 also its achieved
    TFLOP/s and its share of the bound; for K2 and K3 also the device
    time a launch from a replayed CUDA graph, since back-to-back calls at
@@ -111,11 +115,30 @@ and no result line is printed):
     internvl2 with a prefix on the card against the CPU; then its
     ``Trainer`` with the SyntheticLM prefix: global batch 8, 384
     positions (256 + 128 tokens), 4 steps, every loss finite and K1
-    exactly 48 launches a step (24 layers, forward and remat recompute).
+    exactly 48 launches a step (24 layers, forward and remat recompute);
+15. serve llama4-maverick-400b-a17b at full width but 4 of its 48
+    layers (2 dense and 2 MoE layers of 128 experts, top-1 and a shared
+    expert; 35.04 B parameters, 65.26 GiB: the full depth's 741 GiB fits
+    no card), alone on the card; the peak memory of its init (each
+    expert stack filled one expert at a time) and of its serving run are
+    printed; K1 4 × prefills; a small llama4 with all 128 experts (d_model
+    64, head_dim 128, G=5) on the card against the CPU: float32 logits
+    and greedy tokens, and bf16 logits within 2e-2 of their scale at the
+    tokens that route alike on both devices (the ones routed apart are
+    counted and held apart, with every later position of their row);
+16. serve mixtral-8x22b at full width but 8 of its 56 layers (every
+    layer MoE, 8 experts, top-2, window 4096; 20.44 B parameters, 38.06
+    GiB); K1 8 × prefills; a small mixtral (head_dim 128, G=6, window
+    16) on the card against the CPU as in phase 15;
+17. one train step of a small llama4-maverick (d_model 256, head_dim 64,
+    8 experts and the shared one, remat "full") on the card against the
+    CPU in float32, at phase 8's tolerances; K1 2 × its layers.
 
 The launch counts of each serving path and of each full-width train run
 are set to 0 just before it and read just after; a kernel that the path
-does not run must show 0.  The last two lines are the kernels' JSON
+does not run must show 0.  No kernel of the MoE layer: the reference
+computes the experts with ``jnp.einsum`` outside any kernel, and the port
+with ``torch.bmm``.  The last two lines are the kernels' JSON
 record and the result line ``{"ok": true, "device": {...}}``.  Needs one
 CUDA device; fails without.
 """
@@ -396,6 +419,20 @@ def check_attention(torch, fa, ref) -> float:
         ("G=7 D=128 f32", 1, 100, 56, 8, 128, f32, None, None, 1.0),
         ("G=2 D=256 softcap f32", 1, 40, 16, 8, 256, f32, 16, 50.0, 6.0),
     ]
+    # the MoE configs: llama4-maverick (G=5, D=128, no window) and
+    # mixtral-8x22b (G=6, D=128, window 4096 on every layer) at both
+    # prompt buckets, in bf16 and f32; and at S=300 (a ragged last tile)
+    # with a window of 100 that bites
+    for name, H, window in (("llama4", 40, None), ("mixtral", 48, 4096)):
+        for S in (16, 32):
+            cases += [(f"serve {name} S={S}", 1, S, H, 8, 128, bf16, window,
+                       None, 1.0),
+                      (f"{name} S={S} f32", 1, S, H, 8, 128, f32, window,
+                       None, 1.0)]
+        cases += [(f"{name} S=300 window 100", 1, 300, H, 8, 128, bf16, 100,
+                   None, 1.0),
+                  (f"{name} S=300", 2, 300, H, 8, 128, bf16, window, None,
+                   1.0)]
     main_err = 0.0
     for i, (name, B, S, H, KV, D, dt, window, softcap, sc) in \
             enumerate(cases):
@@ -710,12 +747,16 @@ def serve_full_width(torch, arch: str, kernels: dict, expect: dict,
               f" layers: {full / 1e9:.2f} B parameters, "
               f"{full * 2 / 2**30:.1f} GiB of bf16 weights at full depth, "
               "do not fit one card")
+    torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg, device="cuda", seed=0)
     n_params = sum(p.numel() for p in params.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     print(f"[{tag}] {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
           f"{cfg.n_heads}/{cfg.kv_heads}, head_dim {cfg.head_dim}, vocab "
           f"{cfg.vocab}, {cfg.param_dtype}: {n_params / 1e9:.3f} B "
-          f"parameters, {n_params * 2 / 2**30:.2f} GiB")
+          f"parameters, {n_bytes / 2**30:.2f} GiB; peak memory of the init "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}")
     serve(cfg, requests=2, max_batch=4, max_new=2, seed=1,
           params=params)                                      # warm-up
     torch.cuda.reset_peak_memory_stats()
@@ -830,30 +871,88 @@ def small_model_on_card_and_cpu(torch, arch: str, tag: str,
                               "card and CPU")
 
 
+def _moe_inputs(model) -> tuple[list, list]:
+    """Forward pre-hooks that record the (x, router) of every MoE layer's
+    call in ``model``; returns (records, hooks)."""
+    from repro_torch.models.layers import MoELayer
+
+    seen, hooks = [], []
+    for layer in model.layers:
+        if isinstance(layer, MoELayer):
+            hooks.append(layer.moe.register_forward_pre_hook(
+                lambda m, args: seen.append((args[0], m.router))))
+    return seen, hooks
+
+
+def _routes(torch, x, router, cfg):
+    """The routes of x (B, S, d) on its device, as the MoE layer takes
+    them: each token's top-k experts (B, S, k), and whether each route
+    fits its expert's capacity (one chunk, slot-major, every route
+    counted) — on the CPU."""
+    idx = torch.topk(torch.softmax(x.float() @ router.float(), dim=-1),
+                     cfg.top_k, dim=-1).indices.cpu()
+    B, S, k = idx.shape
+    C = max(k, int(math.ceil(S * k / cfg.n_experts * cfg.capacity_factor)))
+    kept = torch.zeros(idx.shape, dtype=torch.bool)
+    for b in range(B):
+        fill = [0] * cfg.n_experts
+        for slot in range(k):
+            for t in range(S):
+                e = int(idx[b, t, slot])
+                kept[b, t, slot] = fill[e] < C
+                fill[e] += 1
+    return idx, kept
+
+
 def small_bf16_model_on_card_and_cpu(torch, fa, arch: str, tag: str,
                                      nonzero: bool = False,
                                      **overrides) -> None:
     """A small bf16 model: the card (K1 on the tensor cores) against the
     CPU (plain versions), logits within 2e-2 of the logits' scale, as
     tests/test_torch_model.py holds bf16.  Greedy tokens are not compared:
-    bf16 rounds differently on the two devices and near-ties flip."""
+    bf16 rounds differently on the two devices and near-ties flip.  In a
+    MoE model a near-tie in a router sends a token to another expert: each
+    device's routes are taken from its own inputs to every MoE layer, and
+    a token routed apart, with every later position of its row (which
+    attends to it or shares its capacity), is counted and held apart, as
+    tests/test_torch_moe.py holds the two frameworks."""
     from repro_torch.models import forward
 
     small, cpu_model, gpu_model, toks, _ = _small_model(
         torch, arch, "bfloat16", nonzero, overrides)
+    check(small.moe_seq_chunk == 0 or toks.shape[1] <= small.moe_seq_chunk,
+          f"{arch}: the routes are compared over one chunk")
+    seen, hooks = {}, []
+    for dev, model in (("cpu", cpu_model), ("cuda", gpu_model)):
+        seen[dev], h = _moe_inputs(model)
+        hooks += h
     with torch.no_grad():
         l_cpu, _ = forward(cpu_model, toks, small)
         fa.launches = 0
         l_gpu, _ = forward(gpu_model, toks.cuda(), small)
         torch.cuda.synchronize()
     launched = fa.launches
-    want = l_cpu.float()
-    err = (l_gpu.cpu().float() - want).abs().max().item()
+    for h in hooks:
+        h.remove()
+    apart = torch.zeros(toks.shape, dtype=torch.bool)
+    for on_cpu, on_gpu in zip(seen["cpu"], seen["cuda"]):
+        (i_c, k_c), (i_g, k_g) = (_routes(torch, x, r, small)
+                                  for x, r in (on_cpu, on_gpu))
+        apart |= ((i_c != i_g) | (k_c != k_g)).any(-1)
+    held = torch.cummax(apart.int(), dim=1).values == 0
+    want = l_cpu.float()[held]
+    err = (l_gpu.cpu().float()[held] - want).abs().max().item()
     scale = want.abs().max().item()
-    print(f"[{tag}] small bf16 model logits, card vs CPU: max|err| "
+    moe = "" if not seen["cpu"] else (
+        f" over {int(held.sum())} of {held.numel()} positions "
+        f"({int(apart.sum())} tokens routed apart over "
+        f"{len(seen['cpu'])} MoE layers)")
+    print(f"[{tag}] small bf16 model logits, card vs CPU{moe}: max|err| "
           f"{err:.3e} (2e-2 of the logits' scale {scale:.3f}: "
           f"{2e-2 * scale:.3e}); K1 launches {launched}")
     check(launched > 0, f"{arch}: the bf16 model did not run K1")
+    check(held.float().mean().item() >= 0.5,
+          f"{arch}: more than half the positions routed apart")
     check(bool(torch.isfinite(l_gpu).all()) and err <= 2e-2 * scale,
           f"{arch}: small bf16 model logits differ between card and CPU")
 
@@ -930,16 +1029,17 @@ def check_gradients(torch, ops, ref, fa, k2, k3) -> None:
                       f"ones: {failed}")
 
 
-def train_step_on_card_and_cpu(torch, fa, dtype: str) -> None:
-    """One train step of a small llama3.2-1b (K1 at D=64) on the card and
-    on the CPU from the same weights and batch."""
+def train_step_on_card_and_cpu(torch, fa, dtype: str,
+                               arch: str = "llama3.2-1b") -> None:
+    """One train step of a small ``arch`` (K1 at D=64) on the card and on
+    the CPU from the same weights and batch."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import SyntheticLM
     from repro_torch.models import init_params
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.train.steps import StepConfig, make_train_step
 
-    small = get_smoke_config("llama3.2-1b").replace(
+    small = get_smoke_config(arch).replace(
         param_dtype=dtype, d_model=256, n_heads=4, kv_heads=2, head_dim=64,
         d_ff=512, remat="full")
     data = SyntheticLM(vocab=small.vocab, seq_len=64, global_batch=4,
@@ -962,7 +1062,7 @@ def train_step_on_card_and_cpu(torch, fa, dtype: str) -> None:
                     fa.launches)
     (gpu, l_gpu, n_gpu, launched), (cpu, l_cpu, n_cpu, _) = \
         out["cuda"], out["cpu"]
-    tag = f"train step, small llama3.2-1b {dtype}"
+    tag = f"train step, small {arch} {dtype}"
     print(f"[{tag}] loss card {l_gpu:.7f} CPU {l_cpu:.7f}; grad norm card "
           f"{n_gpu:.7f} CPU {n_cpu:.7f}; K1 launches {launched}")
     check(launched == 2 * small.n_layers,
@@ -1264,6 +1364,9 @@ def main() -> int:
     time_attention(torch, fa, ref, 1, 32, 56, 8, 128)      # deepseek-33b
     time_attention(torch, fa, ref, 1, 288, 14, 2, 64)      # internvl2-1b
     time_attention(torch, fa, ref, 8, 384, 14, 2, 64)      # its train step
+    time_attention(torch, fa, ref, 1, 32, 40, 8, 128)      # llama4-maverick
+    time_attention(torch, fa, ref, 1, 32, 48, 8, 128,
+                   window=4096)                            # mixtral-8x22b
     t_k2 = time_scan(torch, k2, ref, 1, 23, 2560)
     time_scan(torch, k2, ref, 1, 2048, 2560)
     t_k3 = time_wkv(torch, k3, ref, 1, 64, 23, zero_s0=True)
@@ -1334,6 +1437,37 @@ def main() -> int:
                                 nonzero=True, head_dim=64)
     free_card(torch)
     train_internvl = train_with_prefix(torch, kernels, "train internvl2-1b")
+    free_card(torch)
+
+    # 65.3 GiB of weights: alone on the card
+    llama4 = serve_full_width(torch, "llama4-maverick-400b-a17b", kernels,
+                              {"flash_attention": 4, "rglru_scan": 0,
+                               "wkv6": 0}, "serve llama4-maverick",
+                              n_layers=4)
+    free_card(torch)
+    # all 128 experts at a narrow width; G=5 and head_dim 128 so that K1
+    # runs as in the full model
+    small_llama4 = dict(n_experts=128, n_heads=10, kv_heads=2, head_dim=128)
+    small_model_on_card_and_cpu(torch, "llama4-maverick-400b-a17b",
+                                "serve llama4-maverick", nonzero=True,
+                                **small_llama4)
+    small_bf16_model_on_card_and_cpu(torch, fa, "llama4-maverick-400b-a17b",
+                                     "serve llama4-maverick", nonzero=True,
+                                     **small_llama4)
+    mixtral = serve_full_width(torch, "mixtral-8x22b", kernels,
+                               {"flash_attention": 8, "rglru_scan": 0,
+                                "wkv6": 0}, "serve mixtral-8x22b",
+                               n_layers=8)
+    free_card(torch)
+    # G=6 and head_dim 128, the smoke config's window of 16
+    small_mixtral = dict(n_heads=12, kv_heads=2, head_dim=128)
+    small_model_on_card_and_cpu(torch, "mixtral-8x22b", "serve mixtral-8x22b",
+                                nonzero=True, **small_mixtral)
+    small_bf16_model_on_card_and_cpu(torch, fa, "mixtral-8x22b",
+                                     "serve mixtral-8x22b", nonzero=True,
+                                     **small_mixtral)
+    train_step_on_card_and_cpu(torch, fa, "float32",
+                               "llama4-maverick-400b-a17b")
 
     paths = {"llama3.2-1b": llama, "recurrentgemma-2b": rgemma,
              "rwkv6-7b": rwkv, "train llama3.2-1b": train,
@@ -1341,7 +1475,9 @@ def main() -> int:
              "qwen1.5-110b (8 of 80 layers)": qwen,
              "musicgen-medium": musicgen,
              "internvl2-1b prefix prefill + decode": internvl,
-             "train internvl2-1b": train_internvl}
+             "train internvl2-1b": train_internvl,
+             "llama4-maverick-400b-a17b (4 of 48 layers)": llama4,
+             "mixtral-8x22b (8 of 56 layers)": mixtral}
 
     def row(name, src, replaces, err, t):
         return {"name": name, "route": "cuda",

@@ -6,15 +6,18 @@ stacks each pattern position's weights over depth (``blocks[pos][name]``
 has a leading ``n_units`` axis) and keeps a non-divisible remainder in
 ``rest``; the port holds one module per layer, so ``blocks[pos][name][i]``
 becomes layer ``i * len(pattern) + pos`` and ``rest[j]`` layer
-``n_units * len(pattern) + j``.  Nested leaves (``mlp``, and RWKV's
-``tm`` and ``cm`` dicts) map to submodules' parameters by their dotted
-names.  :func:`tree_from_named` and :func:`named_from_tree` are that
+``n_units * len(pattern) + j``.  Nested leaves (``mlp``, RWKV's ``tm``
+and ``cm`` dicts, and a MoE layer's ``moe`` with its ``shared`` expert:
+``moe.shared.w1``) map to submodules' parameters by their dotted names;
+a MoE layer's expert stacks (E, d, ff) are (n_units, E, d, ff) in
+``blocks``.  :func:`tree_from_named` and :func:`named_from_tree` are that
 mapping, for any leaves keyed by the port's parameter names (weights,
 AdamW moments, error feedback); the checkpoint uses them.
 
 :func:`params_from_jax` requires each leaf to match its port parameter
-in shape and dtype (RG-LRU's gate leaves and RWKV's ``u``, ``w0``,
-``gn_w``, ``gn_b`` are float32 in a bfloat16 model); a mismatch raises
+in shape and dtype (RG-LRU's gate leaves, RWKV's ``u``, ``w0``,
+``gn_w``, ``gn_b`` and the MoE ``router`` are float32 in a bfloat16
+model); a mismatch raises
 rather than casting.  :func:`params_to_jax` is its inverse.
 """
 

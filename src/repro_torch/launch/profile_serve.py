@@ -2,7 +2,10 @@
 :func:`repro_torch.launch.serve.serve` run under ``torch.profiler``.
 
     python -m repro_torch.launch.profile_serve --arch recurrentgemma-2b \\
-        [--requests 8] [--max-batch 4] [--max-new 16] [--out FILE]
+        [--requests 8] [--max-batch 4] [--max-new 16] [--layers N] \\
+        [--out FILE]
+    python -m repro_torch.launch.profile_serve \\
+        --arch llama4-maverick-400b-a17b --layers 4
 
 Prints the wall seconds, the device-kernel seconds and the device's idle
 share of the wall (one stream, so kernels do not overlap), the kernel
@@ -10,7 +13,9 @@ launches per engine step (prefills and decode ticks), then the kernels
 with the most device time and the port's own kernels (K1, K2, K3) with
 their launches per step.  ``--out`` also writes them as JSON.  The
 weights are made, and a warm-up run is served, before the profiler
-starts.  Needs a CUDA device.
+starts.  ``--layers N`` cuts the depth to N layers, at full width, for
+a model whose weights do not fit one card (llama4-maverick-400b-a17b at
+4 of 48 layers is 65.3 GiB); the cut is printed.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -47,12 +52,18 @@ def main() -> None:
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
 
     cfg = get_smoke_config(args.arch) if args.smoke \
         else get_config(args.arch)
+    if args.layers is not None:
+        print(f"{cfg.name}: depth cut to {args.layers} of {cfg.n_layers} "
+              "layers, at full width")
+        cfg = cfg.replace(n_layers=args.layers)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -83,7 +94,8 @@ def main() -> None:
     ours = [row(e) | {"launches_per_step": e.count / steps}
             for e in kernels if any(name in e.key for name in PORT_KERNELS)]
     launches = sum(e.count for e in kernels)
-    summary = {"card": card, "arch": cfg.name, "requests": args.requests,
+    summary = {"card": card, "arch": cfg.name, "n_layers": cfg.n_layers,
+               "requests": args.requests,
                "max_batch": args.max_batch, "max_new": args.max_new,
                "tokens": engine.tokens_out, "wall_s": wall,
                "device_kernel_s": device_s,

@@ -6,12 +6,17 @@ card.  The port of :mod:`repro.launch.serve`, with a ``--device`` flag:
     python -m repro_torch.launch.serve --arch gemma2-9b
     python -m repro_torch.launch.serve --arch recurrentgemma-2b
     python -m repro_torch.launch.serve --arch rwkv6-7b
+    python -m repro_torch.launch.serve --arch mixtral-8x22b --smoke \\
+        --device cpu
 
 ``--arch`` takes every id of :data:`repro_torch.configs.ARCH_IDS`.  At
-full depth qwen1.5-110b (≈ 207 GiB of bf16 weights) does not fit one
-80 GB card, and deepseek-coder-33b (≈ 62 GiB) fits with little room.
-internvl2-1b and musicgen-medium are served on their tokens alone, with
-no frontend prefix, as the reference's engine serves them.
+full depth qwen1.5-110b (≈ 207 GiB of bf16 weights), mixtral-8x22b
+(≈ 262 GiB) and llama4-maverick-400b-a17b (≈ 741 GiB) do not fit one
+80 GB card, and deepseek-coder-33b (≈ 62 GiB) fits with little room;
+``chip_smoke.py`` serves the three at full width and reduced depth
+through :func:`serve`.  internvl2-1b and musicgen-medium are served on
+their tokens alone, with no frontend prefix, as the reference's engine
+serves them.
 """
 
 from __future__ import annotations

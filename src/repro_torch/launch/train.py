@@ -6,8 +6,12 @@ unless ``--device cpu``:
         --steps 3 --device cpu
 
 ``--smoke`` runs the reduced same-family config; without it the full
-published config (llama3.2-1b fits one H100 with its f32 AdamW state).
-``--arch`` takes every id of :data:`repro_torch.configs.ARCH_IDS`.  The
+published config (llama3.2-1b fits one H100 with its f32 AdamW state;
+no MoE config does: one mixtral-8x22b layer's experts with float32
+gradients and AdamW moments need about 34 GB).
+``--arch`` takes every id of :data:`repro_torch.configs.ARCH_IDS`; the
+MoE configs add their load-balancing aux to the loss, as the
+reference's.  The
 frontend configs spend ``frontend_len`` of ``--seq-len`` on their prefix,
 so internvl2-1b needs ``--seq-len`` above 256 and musicgen-medium above
 128 (the Trainer refuses less):

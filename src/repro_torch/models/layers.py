@@ -1,5 +1,7 @@
 """Core transformer layers: RMSNorm, RoPE, GQA attention, gated MLPs and
-the KV-cache decode attention — the port of :mod:`repro.models.layers`.
+the KV-cache decode attention — the port of :mod:`repro.models.layers`;
+and the attention block with a mixture of experts (:class:`MoELayer`,
+the experts in :mod:`.moe`).
 
 Layouts are the reference's: activations ``(B, S, d)``, q ``(B, S, H, D)``,
 k and v ``(B, S, KV, D)``, caches ``(B, Sc, KV, D)``, weights ``(in, out)``
@@ -25,8 +27,8 @@ from ..kernels import ops
 
 __all__ = [
     "rmsnorm", "rope", "gqa_attention", "decode_gqa_attention",
-    "mlp_apply", "MLP", "AttnLayer", "init_mlp", "init_attn_layer",
-    "fill_attn_layer", "ZERO_INIT",
+    "mlp_apply", "MLP", "AttnLayer", "MoELayer", "init_mlp",
+    "init_attn_layer", "fill_attn_layer", "fill_moe_layer", "ZERO_INIT",
 ]
 
 
@@ -187,7 +189,7 @@ class AttnLayer(nn.Module):
         self.wv = _param((d, K * D), dtype, device)
         self.wo = _param((H * D, d), dtype, device)
         self.ln2 = _param((d,), dtype, device)
-        self.mlp = MLP(d, cfg.d_ff, cfg.mlp, dtype=dtype, device=device)
+        self._make_ffn(cfg, dtype=dtype, device=device)
         if cfg.qkv_bias:
             self.bq = _param((H * D,), dtype, device)
             self.bk = _param((K * D,), dtype, device)
@@ -195,6 +197,10 @@ class AttnLayer(nn.Module):
         if cfg.post_norms:
             self.ln1_post = _param((d,), dtype, device)
             self.ln2_post = _param((d,), dtype, device)
+
+    def _make_ffn(self, cfg, *, dtype, device) -> None:
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp, dtype=dtype,
+                       device=device)
 
     def qkv(self, h: torch.Tensor, positions: torch.Tensor):
         """Normed projections with RoPE: q (B,S,H,D), k and v (B,S,K,D)."""
@@ -210,29 +216,62 @@ class AttnLayer(nn.Module):
         return (rope(q, positions, cfg.rope_theta),
                 rope(k, positions, cfg.rope_theta), v)
 
-    def finish(self, h: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
-        """Output projection, residual, and the MLP half of the block.
-        ``o`` is the attention output (B, S, H, D)."""
+    def _attn_residual(self, h: torch.Tensor, o: torch.Tensor):
+        """Output projection of the attention output ``o`` (B, S, H, D)
+        added to the residual; returns the new residual and its norm, the
+        input of the block's second half."""
         cfg = self.cfg
         B, S, _ = h.shape
         o = o.reshape(B, S, -1).to(h.dtype) @ self.wo
         if cfg.post_norms:
             o = rmsnorm(o, self.ln1_post, cfg.norm_eps)
         h = h + o
-        m = self.mlp(rmsnorm(h, self.ln2, cfg.norm_eps))
-        if cfg.post_norms:
-            m = rmsnorm(m, self.ln2_post, cfg.norm_eps)
+        return h, rmsnorm(h, self.ln2, cfg.norm_eps)
+
+    def _ffn_residual(self, h: torch.Tensor, m: torch.Tensor):
+        if self.cfg.post_norms:
+            m = rmsnorm(m, self.ln2_post, self.cfg.norm_eps)
         return h + m
+
+    def _attend(self, q, k, v, local: bool) -> torch.Tensor:
+        window = self.cfg.window if local else None
+        return gqa_attention(q, k, v, window=window,
+                             softcap=self.cfg.attn_softcap)
+
+    def finish(self, h: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+        """Output projection, residual, and the MLP half of the block.
+        ``o`` is the attention output (B, S, H, D)."""
+        h, x = self._attn_residual(h, o)
+        return self._ffn_residual(h, self.mlp(x))
 
     def forward(self, h: torch.Tensor, positions: torch.Tensor, *,
                 local: bool = False):
         """Full-sequence block.  Returns (h, k, v) — the post-RoPE keys
         and the values, which prefill stores in the cache."""
         q, k, v = self.qkv(h, positions)
-        window = self.cfg.window if local else None
-        o = gqa_attention(q, k, v, window=window,
-                          softcap=self.cfg.attn_softcap)
-        return self.finish(h, o), k, v
+        return self.finish(h, self._attend(q, k, v, local)), k, v
+
+
+class MoELayer(AttnLayer):
+    """An attention block with the mixture of experts (``moe``, a
+    :class:`~.moe.MoE`) in place of the MLP, as the reference's MoE
+    layer.  :meth:`finish` returns ``(h, aux)`` and :meth:`forward`
+    ``(h, k, v, aux)``: aux is the layer's load-balancing loss term."""
+
+    def _make_ffn(self, cfg, *, dtype, device) -> None:
+        from .moe import MoE        # moe.py builds on this module
+        self.moe = MoE(cfg, dtype=dtype, device=device)
+
+    def finish(self, h: torch.Tensor, o: torch.Tensor):
+        h, x = self._attn_residual(h, o)
+        m, aux = self.moe(x)
+        return self._ffn_residual(h, m), aux
+
+    def forward(self, h: torch.Tensor, positions: torch.Tensor, *,
+                local: bool = False):
+        q, k, v = self.qkv(h, positions)
+        h, aux = self.finish(h, self._attend(q, k, v, local))
+        return h, k, v, aux
 
 
 #: leaves that the init leaves at zero, in both packages: the norm
@@ -241,11 +280,7 @@ ZERO_INIT = ("ln1", "ln2", "ln1_post", "ln2_post", "final_ln", "bq", "bk",
              "bv")
 
 
-@torch.no_grad()
-def fill_attn_layer(layer: AttnLayer, generator: torch.Generator) -> None:
-    """Initialize ``layer`` in place as the reference does: N(0, 1/d)
-    for wq/wk/wv, N(0, 1/(H·D)) for wo, the MLP as :func:`init_mlp`,
-    zeros for norms and biases (the norms scale by 1 + w)."""
+def _fill_attention(layer: AttnLayer, generator: torch.Generator) -> None:
     cfg = layer.cfg
     for p in layer.parameters(recurse=False):
         p.zero_()
@@ -255,7 +290,25 @@ def fill_attn_layer(layer: AttnLayer, generator: torch.Generator) -> None:
     _normal_(layer.wv, std, generator)
     _normal_(layer.wo, 1.0 / math.sqrt(cfg.n_heads * cfg.head_dim),
              generator)
+
+
+@torch.no_grad()
+def fill_attn_layer(layer: AttnLayer, generator: torch.Generator) -> None:
+    """Initialize ``layer`` in place as the reference does: N(0, 1/d)
+    for wq/wk/wv, N(0, 1/(H·D)) for wo, the MLP as :func:`init_mlp`,
+    zeros for norms and biases (the norms scale by 1 + w)."""
+    _fill_attention(layer, generator)
     _fill_mlp(layer.mlp, generator)
+
+
+@torch.no_grad()
+def fill_moe_layer(layer: MoELayer, generator: torch.Generator) -> None:
+    """Initialize ``layer`` in place: its attention half as
+    :func:`fill_attn_layer`, the experts as :func:`~.moe.fill_moe` (one
+    expert at a time)."""
+    from .moe import fill_moe
+    _fill_attention(layer, generator)
+    fill_moe(layer.moe, generator)
 
 
 @torch.no_grad()

@@ -1,13 +1,16 @@
-"""The decoder, ATTN, RG-LRU and RWKV patterns — the port of
-:mod:`repro.models.transformer`.
+"""The decoder, every layer kind of the reference (ATTN, MOE, RG-LRU,
+RWKV) — the port of :mod:`repro.models.transformer`.
 
 The reference stacks the weights of each pattern position over depth and
 scans over them; the port holds one :class:`AttnLayer`,
-:class:`RGLRULayer` or :class:`RWKVLayer` per layer in an
-``nn.ModuleList`` and loops.  Dense attention (llama3.2-1b, gemma2-9b's
+:class:`MoELayer`, :class:`RGLRULayer` or :class:`RWKVLayer` per layer in
+an ``nn.ModuleList`` and loops.  Dense attention (llama3.2-1b, gemma2-9b's
 alternating local/global layers, qwen1.5-110b, deepseek-coder-33b,
-internvl2-1b, musicgen-medium), the RG-LRU hybrid (recurrentgemma-2b) and
-RWKV-6 (rwkv6-7b) are ported so far; MoE layers raise.
+internvl2-1b, musicgen-medium), mixture-of-experts layers (mixtral-8x22b,
+llama4-maverick-400b-a17b, whose dense and MoE layers alternate), the
+RG-LRU hybrid (recurrentgemma-2b) and RWKV-6 (rwkv6-7b).  :func:`forward`
+and :func:`lm_loss` sum the MoE layers' aux loss terms, as the reference
+does; :func:`prefill` and :func:`decode_step` drop them.
 
 A frontend ``prefix`` (internvl2-1b's patch embeddings, musicgen-medium's
 frame embeddings: (B, F, d_model)) is taken by :func:`forward`,
@@ -44,8 +47,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .config import LayerKind, ModelConfig
-from .layers import (AttnLayer, decode_gqa_attention, fill_attn_layer,
-                     rmsnorm)
+from .layers import (AttnLayer, MoELayer, decode_gqa_attention,
+                     fill_attn_layer, fill_moe_layer, rmsnorm)
 from .rglru import RGLRULayer, fill_rglru_layer
 from .rwkv import HEAD_SIZE, RWKVLayer, fill_rwkv_layer
 
@@ -76,28 +79,19 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return device
 
 
-_PORTED = {LayerKind.ATTN: AttnLayer, LayerKind.RGLRU: RGLRULayer,
-           LayerKind.RWKV: RWKVLayer}
-
-
-def _check_kinds(cfg: ModelConfig) -> None:
-    kinds = set(cfg.layer_kinds())
-    if not kinds <= set(_PORTED):
-        raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(k.value for k in kinds)}; "
-            "the port serves attention, RG-LRU and RWKV layers only so "
-            "far")
+_LAYERS = {LayerKind.ATTN: AttnLayer, LayerKind.MOE: MoELayer,
+           LayerKind.RGLRU: RGLRULayer, LayerKind.RWKV: RWKVLayer}
 
 
 class Transformer(nn.Module):
     """Embedding, ``n_layers`` blocks (:class:`AttnLayer`,
-    :class:`RGLRULayer` or :class:`RWKVLayer`, by ``cfg.layer_kinds()``)
-    and the (tied) unembedding.  Parameter names follow the reference's
-    tree, with the stacked ``blocks`` unstacked into ``layers[i]``."""
+    :class:`MoELayer`, :class:`RGLRULayer` or :class:`RWKVLayer`, by
+    ``cfg.layer_kinds()``) and the (tied) unembedding.  Parameter names
+    follow the reference's tree, with the stacked ``blocks`` unstacked
+    into ``layers[i]``."""
 
     def __init__(self, cfg: ModelConfig, *, device) -> None:
         super().__init__()
-        _check_kinds(cfg)
         dtype = _dt(cfg.param_dtype)
         self.cfg = cfg
         self.embed = nn.Parameter(
@@ -111,7 +105,7 @@ class Transformer(nn.Module):
                 torch.empty(cfg.d_model, cfg.padded_vocab(), dtype=dtype,
                             device=device), requires_grad=False)
         self.layers = nn.ModuleList(
-            _PORTED[kind](cfg, dtype=dtype, device=device)
+            _LAYERS[kind](cfg, dtype=dtype, device=device)
             for kind in cfg.layer_kinds())
 
     def local(self, i: int) -> bool:
@@ -167,30 +161,40 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
             fill_rglru_layer(layer, generator)
         elif isinstance(layer, RWKVLayer):
             fill_rwkv_layer(layer, generator)
+        elif isinstance(layer, MoELayer):
+            fill_moe_layer(layer, generator)
         else:
             fill_attn_layer(layer, generator)
     return model
 
 
-def _block(layer: nn.Module, h: torch.Tensor, positions: torch.Tensor,
-           local: bool) -> torch.Tensor:
-    """One layer over the full sequence; its cache entries are dropped."""
-    if isinstance(layer, (RGLRULayer, RWKVLayer)):
-        return layer(h)[0]
-    return layer(h, positions, local=local)[0]
+def _run(params: Transformer, h: torch.Tensor, positions: torch.Tensor,
+         first: int, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Layers ``first`` … ``first + n − 1`` over the full sequence, their
+    cache entries dropped.  Returns h and the sum of the MoE layers' aux
+    terms (float32; 0 without one)."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(first, first + n):
+        layer = params.layers[i]
+        if isinstance(layer, (RGLRULayer, RWKVLayer)):
+            h = layer(h)[0]
+        elif isinstance(layer, MoELayer):
+            h, _, _, a = layer(h, positions, local=params.local(i))
+            aux = aux + a
+        else:
+            h = layer(h, positions, local=params.local(i))[0]
+    return h, aux
 
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             prefix: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits.  Returns (logits (B, S, V), aux scalar) —
-    aux is the MoE loss term, 0 for dense layers.  With a ``prefix``
-    (B, F, d), S = F + the tokens' length."""
+    aux is the sum of the MoE layers' load-balancing terms, 0 without
+    one.  With a ``prefix`` (B, F, d), S = F + the tokens' length."""
     h = params.embed_tokens(tokens, prefix)
     positions = torch.arange(h.shape[1], device=h.device)
-    for i, layer in enumerate(params.layers):
-        h = _block(layer, h, positions, params.local(i))
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    h, aux = _run(params, h, positions, 0, cfg.n_layers)
     return params.unembed(h), aux
 
 
@@ -218,16 +222,17 @@ def lm_loss(params: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
             cfg: ModelConfig, prefix: torch.Tensor | None = None,
             aux_coef: float = 0.01) -> torch.Tensor:
     """Mean next-token cross-entropy over the labels ≥ 0, plus
-    ``aux_coef`` × the MoE aux term (0 for the ported layer kinds).
+    ``aux_coef`` × the MoE layers' summed aux term (0 without one).
     With a ``prefix`` (B, F, d) the labels are (B, F + S_tok), −1 over
     the prefix, as :class:`repro_torch.data.SyntheticLM` makes them.
 
     ``cfg.remat == "full"`` recomputes each pattern unit in the backward
     pass (``torch.utils.checkpoint``), as the reference's scan body is
-    checkpointed; the trailing ``rest`` layers are not, as there.  With
-    ``cfg.ce_seq_chunk`` dividing S the unembedding and CE run chunk by
-    chunk, each chunk checkpointed, so the (B, S, V) logits are never all
-    alive.
+    checkpointed; the trailing ``rest`` layers are not, as there.  A MoE
+    layer checkpoints each of its ``moe_seq_chunk`` chunks, as the
+    reference's.  With ``cfg.ce_seq_chunk`` dividing S the unembedding
+    and CE run chunk by chunk, each chunk checkpointed, so the (B, S, V)
+    logits are never all alive.
     """
     if cfg.remat not in ("none", "full"):
         raise NotImplementedError(
@@ -236,19 +241,16 @@ def lm_loss(params: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)
     P = len(cfg.pattern)
-
-    def run(h: torch.Tensor, first: int, n: int) -> torch.Tensor:
-        for i in range(first, first + n):
-            h = _block(params.layers[i], h, positions, params.local(i))
-        return h
-
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for u in range(cfg.n_units):
         if cfg.remat == "full":
-            h = checkpoint(run, h, u * P, P, use_reentrant=False)
+            h, a = checkpoint(_run, params, h, positions, u * P, P,
+                              use_reentrant=False)
         else:
-            h = run(h, u * P, P)
-    h = run(h, cfg.n_units * P, cfg.n_remainder)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+            h, a = _run(params, h, positions, u * P, P)
+        aux = aux + a
+    h, a = _run(params, h, positions, cfg.n_units * P, cfg.n_remainder)
+    aux = aux + a
 
     chunk = cfg.ce_seq_chunk
     if chunk and S > chunk and S % chunk == 0:
@@ -287,12 +289,11 @@ def _cache_load(x: torch.Tensor) -> torch.Tensor:
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int,
                device: str | torch.device = "cuda") -> list[dict]:
-    """Zeros, one dict per layer: for attention a ``{"k", "v"}`` pair of
-    (B, Sc, KV, D), Sc the window for local layers and ``max_len``
-    otherwise; for RG-LRU ``{"h": (B, R) float32, "conv": (B, W−1, R)
-    bfloat16}``; for RWKV ``{"shift_t", "shift_c": (B, d) bfloat16,
-    "wkv": (B, d/64, 64, 64) float32}``."""
-    _check_kinds(cfg)
+    """Zeros, one dict per layer: for attention and MoE layers a
+    ``{"k", "v"}`` pair of (B, Sc, KV, D), Sc the window for local layers
+    and ``max_len`` otherwise; for RG-LRU ``{"h": (B, R) float32,
+    "conv": (B, W−1, R) bfloat16}``; for RWKV ``{"shift_t", "shift_c":
+    (B, d) bfloat16, "wkv": (B, d/64, 64, 64) float32}``."""
     device = resolve_device(device)
     cdtype = _dt(cfg.cache_dtype)
     cache = []
@@ -364,6 +365,8 @@ def decode_step(params: Transformer, token: torch.Tensor, pos: torch.Tensor,
                                  _cache_load(c["v"]), pos, ring=True,
                                  softcap=cfg.attn_softcap)
         h = layer.finish(h, o)
+        if isinstance(layer, MoELayer):
+            h = h[0]                # its aux is dropped, as the reference's
     return params.unembed(h)[:, 0], cache
 
 
@@ -408,7 +411,8 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             c["h"].copy_(state["h"])
             c["conv"].copy_(state["conv"])
             continue
-        h, k, v = layer(h, positions, local=params.local(i))
+        # an MoE layer's aux, its fourth output, is dropped
+        h, k, v = layer(h, positions, local=params.local(i))[:3]
         Sc = c["k"].shape[1]
         n = min(L, Sc)
         k, v = (x[:, L - n:L] for x in (k, v))

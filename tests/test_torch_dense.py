@@ -29,6 +29,7 @@ import torch
 
 from repro.checkpoint import restore_checkpoint as j_restore
 from repro.checkpoint import save_checkpoint as j_save
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import decode_step as j_decode
@@ -105,11 +106,12 @@ def _close(t, j, tol: float):
 # -- configs ----------------------------------------------------------------------
 
 
-def test_arch_ids_hold_the_eight_ported_configs():
+def test_arch_ids_hold_the_ten_reference_configs():
     assert set(ARCH_IDS) == {
         "llama3.2-1b", "recurrentgemma-2b", "rwkv6-7b", "gemma2-9b",
         "qwen1.5-110b", "deepseek-coder-33b", "internvl2-1b",
-        "musicgen-medium"}
+        "musicgen-medium", "mixtral-8x22b", "llama4-maverick-400b-a17b"}
+    assert set(ARCH_IDS) == set(JAX_ARCH_IDS)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
