@@ -132,7 +132,35 @@ and no result line is printed):
     16) on the card against the CPU as in phase 15;
 17. one train step of a small llama4-maverick (d_model 256, head_dim 64,
     8 experts and the shared one, remat "full") on the card against the
-    CPU in float32, at phase 8's tolerances; K1 2 × its layers.
+    CPU in float32, at phase 8's tolerances; K1 2 × its layers;
+18. the elastic drill at full width: phase 9's llama3.2-1b ``Trainer``
+    steered by an ``ElasticController`` of 4 replicas with a
+    ``CheckpointManager`` (keep 1) under ``build/``, one step at a time,
+    a checkpoint every 4 steps; a ``CORE_FAIL`` of replica 2 at step 6
+    rolls the run back to step 4 (the restored tree loaded into the
+    trainer), and it goes on to step 8.  Holds: restores [(6, 4)], 3
+    replicas without replica 2 whose shards sum to 8, the parameters on
+    the card after the restore equal to the step-4 checkpoint bit for
+    bit, every loss and grad norm finite, ``resize_to_prediction``
+    between 1 and 3 replicas, K1 exactly 32 × the 10 steps run.  Prints
+    ms a step, the seconds of each save (the state to the host, then
+    written) and of the restore, and peak memory; fails with the numbers
+    if the disk lacks room for two checkpoints;
+19. phase 4's full-width llama3.2-1b engine (max batch 4, 16 new tokens,
+    the ``prediction`` autoscaler) under a ``TraceRecorder``: 8 requests
+    in two bursts of 4, at ticks 0 and 8; the trace written as JSONL and
+    Chrome JSON; the JSONL must round-trip byte for byte, rebuild as 8
+    tasks with 4 release times of 0 and 4 later ones, and replay in the
+    simulator under busy, idle, hybrid and prediction twice each with
+    identical reports (makespan, energy, EDP and resumes printed); K1 16
+    × the 8 prefills;
+20. the host runtime on the card's machine: the quickstart table (the
+    simulator on Gauss-Seidel on MN4 under the four policies, and the
+    three DLB policies on Gauss-Seidel + STREAM through
+    ``run_multi_app``) equal to the reference's numbers (``QUICKSTART``,
+    ``SHARING``) within 1e-9, and a closed ``ThreadExecutor`` run of six
+    dependent waves of eight tasks: all done, each after its
+    dependencies.
 
 The launch counts of each serving path and of each full-width train run
 are set to 0 just before it and read just after; a kernel that the path
@@ -153,6 +181,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 from pathlib import Path
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core FLOP/s
@@ -1328,6 +1357,335 @@ def train_with_prefix(torch, kernels: dict, tag: str) -> dict:
     return launches
 
 
+# -- 18.-20. the paper's runtime around the model ---------------------------------
+
+#: phase 20's quickstart table, as the reference package computes it on the
+#: CPU (``tests/test_torch_runtime.py`` holds both packages to these):
+#: policy -> (makespan s, energy J, EDP, resumes) of Gauss-Seidel (30
+#: steps, seed 0) on MN4, and DLB policy -> (gauss makespan s, stream
+#: makespan s, DLB calls) of Gauss-Seidel (20 steps) + STREAM (10 rounds)
+#: on 24 + 24 cores through ``run_multi_app``
+QUICKSTART = {
+    "busy": (3.363578809517858, 161.4517828568572, 543.0557955762034, 0),
+    "idle": (5.146356855727164, 47.934429256413914, 246.6876786291145, 203),
+    "hybrid": (5.141177715177496, 47.92124344180886, 246.37162886662344,
+               203),
+    "prediction": (3.37367879453413, 39.47654912883761, 133.18119667734422,
+                   1846),
+}
+SHARING = {
+    "dlb-lewi": (2.9331975689012126, 0.1024410298032276, 9145),
+    "dlb-hybrid": (2.9290963366340614, 0.10251954532892375, 9068),
+    "dlb-prediction": (2.3194266857353627, 0.10242069007229705, 6057),
+}
+#: relative tolerance of the table's floats: the same Python code on
+#: another host's libm
+QUICKSTART_RTOL = 1e-9
+
+
+def elastic_drill(torch, kernels: dict, tag: str) -> dict:
+    """Phase 18: the port's Trainer on llama3.2-1b at full width, steered
+    by the ElasticController: a checkpoint every 4 steps, replica 2
+    fails at step 6 (CORE_FAIL) and the run rolls back to step 4 and
+    goes on to step 8.  Returns the launch counts of the drill."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.convert import named_from_tree
+    from repro_torch.core.conditions import ConditionTimeline, core_fail
+    from repro_torch.train.elastic import ElasticController
+    from repro_torch.train.steps import StepConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig, load_state
+
+    every, fail_at, last = 4, 6, 8
+    cfg = get_config("llama3.2-1b")
+    tcfg = TrainerConfig(steps=0, global_batch=8, seq_len=128, log_every=1,
+                         step=StepConfig(accum=1, warmup=2))
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, tcfg, device="cuda")
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in list(trainer.params.parameters())
+                      + list(trainer.opt_state["mu"].values())
+                      + list(trainer.opt_state["nu"].values()))
+    print(f"[{tag}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{sum(p.numel() for p in trainer.params.parameters()) / 1e9:.3f}"
+          f" B parameters ({cfg.param_dtype}), AdamW state "
+          f"{tcfg.opt.state_dtype}; training state {state_bytes / 1e9:.3f} "
+          f"GB; global batch {tcfg.global_batch}, {tcfg.seq_len} tokens")
+    root = Path(__file__).resolve().parent / "build"
+    root.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="elastic_ckpt_", dir=root))
+    try:
+        # keep=1: the next checkpoint is written beside the last one
+        # before that one goes
+        free, need = shutil.disk_usage(tmp).free, 2 * state_bytes + 2**30
+        print(f"[{tag}] {free / 1e9:.1f} GB free under {tmp}")
+        check(free >= need, f"{tag}: {free / 1e9:.2f} GB free under {tmp}, "
+                            f"two checkpoints need {need / 1e9:.2f} GB")
+        ctl = ElasticController(max_replicas=4, global_batch=8,
+                                checkpoint=CheckpointManager(tmp, keep=1))
+        fired = {p.time: p for p in ConditionTimeline([core_fail(
+            float(fail_at), 2)])}
+        saved, saves, restore = {}, [], None
+        for mod in kernels.values():
+            mod.launches = 0
+        while trainer.step < last:
+            trainer.run(1)
+            step, h = trainer.step, trainer.history[-1]
+            ctl.on_batches_queued(1, 1024.0)
+            ctl.on_step_done(ctl._task_seq, 1024.0, h["dt"],
+                             replica=ctl.set.replicas[0])
+            # trainer.state() copies the whole state to the host: only
+            # at the steps that save
+            if step % every == 0:
+                t0 = time.perf_counter()
+                state = trainer.state()
+                t1 = time.perf_counter()
+                check(ctl.maybe_checkpoint(step, state, every=every),
+                      f"{tag}: no checkpoint at step {step}")
+                saves.append((step, t1 - t0, time.perf_counter() - t1))
+                saved[step] = state["params"]
+                del state
+            p = fired.pop(float(step), None)
+            if p is not None:
+                t0 = time.perf_counter()
+                like = trainer.state()
+                t1 = time.perf_counter()
+                _, state, resume = ctl.apply_perturbation(p, step, like)
+                t2 = time.perf_counter()
+                del like
+                load_state(trainer, state, resume)
+                torch.cuda.synchronize()
+                restore = (step, resume, t1 - t0, t2 - t1,
+                           time.perf_counter() - t2)
+                del state
+                want = named_from_tree(saved[resume], cfg)
+                same = [torch.equal(q, want[k].to(q.device))
+                        for k, q in trainer.params.named_parameters()]
+                check(all(same), f"{tag}: {same.count(False)} of "
+                                 f"{len(same)} parameters differ from the "
+                                 f"step-{resume} checkpoint after the "
+                                 "restore")
+        launches = {name: mod.launches for name, mod in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        trainer.close()
+    hist = trainer.history
+    dts = [h["dt"] for h in hist]
+    print(f"[{tag}] steps run {[h['step'] for h in hist]}, losses "
+          f"{[round(h['loss'], 5) for h in hist]}, grad norms "
+          f"{[round(h['grad_norm'], 4) for h in hist]}")
+    print(f"[{tag}] ms a step (synchronised) "
+          f"{[round(d * 1e3, 3) for d in dts]}; steps 3 on: "
+          f"{sum(dts[2:]) / len(dts[2:]) * 1e3:.3f} ms; peak memory "
+          f"{peak / 2**30:.2f} GiB; kernel launches {launches}")
+    for step, t_host, t_write in saves:
+        print(f"[{tag}] save at step {step}: {state_bytes / 1e9:.3f} GB, "
+              f"state to the host {t_host:.3f} s, written "
+              f"{t_write:.3f} s ({state_bytes / t_write / 1e9:.3f} GB/s)")
+    check(restore is not None, f"{tag}: the failure did not fire")
+    step, resume, t_like, t_read, t_load = restore
+    survivors, shards = list(ctl.set.replicas), ctl.set.shards()
+    target = ctl.resize_to_prediction(trainer.step)
+    print(f"[{tag}] CORE_FAIL of replica 2 at step {step}: rolled back to "
+          f"step {resume}; restore {t_like + t_read + t_load:.3f} s (the "
+          f"live state to the host {t_like:.3f} s, the checkpoint read "
+          f"{t_read:.3f} s, onto the card {t_load:.3f} s); replicas "
+          f"{survivors}, shards {shards}, restores {ctl.restores}; "
+          f"resize_to_prediction at step {trainer.step}: {target.replicas}")
+    check(ctl.restores == [(fail_at, every)],
+          f"{tag}: restores {ctl.restores}")
+    check(len(survivors) == 3 and 2 not in survivors
+          and sum(shards.values()) == 8,
+          f"{tag}: replicas {survivors}, shards {shards}")
+    check(all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+              for h in hist), f"{tag}: a loss or grad norm is not finite")
+    check(1 <= len(target.replicas) <= 3 and 2 not in target.replicas,
+          f"{tag}: resize_to_prediction gave {target.replicas}")
+    # steps 1-6, then 5-8 again after the rollback to step 4
+    executed = fail_at + last - every
+    check(len(hist) == executed, f"{tag}: {len(hist)} steps run")
+    want = {"flash_attention": 2 * cfg.n_layers * executed,
+            "rglru_scan": 0, "wkv6": 0}
+    check(launches == want, f"{tag}: kernel launches {launches}, want "
+                            f"{want} (32 a step: forward and remat "
+                            "recompute)")
+    return launches
+
+
+def traced_serving(torch, kernels: dict, tag: str) -> dict:
+    """Phase 19: phase 4's full-width llama3.2-1b engine under a
+    TraceRecorder, 8 requests in two bursts (ticks 0 and 8); the trace
+    replayed in the simulator under four policies.  Returns the launch
+    counts of the serving run."""
+    import random
+    import shutil
+    import tempfile
+    from dataclasses import asdict
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import GovernorSpec
+    from repro_torch.models import init_params
+    from repro_torch.serving import AutoScaler, Request, ServingEngine
+    from repro_torch.trace import TraceRecorder, TraceReplayer
+
+    cfg = get_config("llama3.2-1b")
+    params = init_params(cfg, device="cuda", seed=0)
+    engine = ServingEngine(cfg, params, max_batch=4, max_len=128,
+                           device="cuda")
+    scaler = AutoScaler(engine.monitor, max_replicas=4, policy="prediction",
+                        bus=engine.bus)
+    rec = TraceRecorder(bus=engine.bus)
+    rng = random.Random(0)
+    bursts = {0: 4, 8: 4}
+    reqs, tick = [], 0
+    for mod in kernels.values():
+        mod.launches = 0
+    while tick <= max(bursts) or engine.load:
+        for _ in range(bursts.get(tick, 0)):
+            prompt = [rng.randrange(cfg.vocab)
+                      for _ in range(rng.randint(4, 23))]
+            reqs.append(engine.submit(Request(prompt=prompt,
+                                              max_new_tokens=16)))
+        scaler.target(len(engine.queue),
+                      sum(r is not None for r in engine.active))
+        engine.tick()
+        tick += 1
+    torch.cuda.synchronize()
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    print(f"[{tag}] {len(reqs)} requests in bursts {bursts} (tick: "
+          f"requests), {engine.ticks} decode ticks, {engine.prefills} "
+          f"prefills, {engine.tokens_out} tokens, {len(rec)} events "
+          f"recorded; kernel launches {launches}")
+    check(all(r.done and len(r.output) == 16 for r in reqs),
+          f"{tag}: a request did not finish with 16 tokens")
+    check(engine.prefills == 8, f"{tag}: {engine.prefills} prefills")
+    want = {"flash_attention": 16 * engine.prefills, "rglru_scan": 0,
+            "wkv6": 0}
+    check(launches == want, f"{tag}: kernel launches {launches}, want "
+                            f"{want}")
+    tmp = Path(tempfile.mkdtemp(prefix="trace_"))
+    try:
+        jsonl = rec.to_jsonl(tmp / "serving.jsonl")
+        chrome = rec.to_chrome(tmp / "serving.chrome.json")
+        print(f"[{tag}] trace: {jsonl.stat().st_size} bytes of JSONL, "
+              f"{chrome.stat().st_size} bytes of Chrome trace")
+        again = TraceRecorder.from_jsonl(jsonl).to_jsonl(tmp / "again.jsonl")
+        check(again.read_bytes() == jsonl.read_bytes(),
+              f"{tag}: the JSONL does not round-trip byte for byte")
+        replayer = TraceReplayer(jsonl)
+        graph, timeline = replayer.build()
+        releases = sorted(t.release_time for t in graph.tasks)
+        print(f"[{tag}] replayed graph: {len(graph.tasks)} tasks, release "
+              f"times (s) {[round(x, 6) for x in releases]}")
+        check(len(graph.tasks) == 8, f"{tag}: {len(graph.tasks)} tasks")
+        check(timeline is not None
+              and list(timeline.release_times) == releases,
+              f"{tag}: the arrival timeline is {timeline}")
+        check(releases[:4] == [0.0] * 4 and all(x > 0 for x in releases[4:]),
+              f"{tag}: release times {releases}")
+        for policy in ("busy", "idle", "hybrid", "prediction"):
+            spec = GovernorSpec(resources=4, policy=policy, monitoring=True)
+            a, b = replayer.replay(spec), replayer.replay(spec)
+            check(asdict(a) == asdict(b),
+                  f"{tag}: two replays under {policy} differ")
+            check(a.tasks_completed == 8,
+                  f"{tag}: {policy} replay completed {a.tasks_completed}")
+            print(f"[{tag}] replay {policy:10s} makespan {a.makespan!r} s, "
+                  f"energy {a.energy!r} J, EDP {a.edp!r}, resumes "
+                  f"{a.resumes}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def runtime_tables(tag: str) -> tuple[dict, dict]:
+    """Phase 20's quickstart table: the simulator on Gauss-Seidel under
+    the four policies, and the three DLB policies through
+    ``run_multi_app``; returns them in :data:`QUICKSTART`'s and
+    :data:`SHARING`'s form."""
+    from repro_torch.core import GovernorSpec
+    from repro_torch.runtime import MN4, SimExecutor, SimJobSpec, run_multi_app
+    from repro_torch.workloads import build_gauss_seidel, build_stream
+
+    table, sharing = {}, {}
+    for policy in ("busy", "idle", "hybrid", "prediction"):
+        graph = build_gauss_seidel(steps=30, seed=0)
+        spec = GovernorSpec(resources=MN4.n_cores, policy=policy,
+                            monitoring=True)
+        r = SimExecutor(MN4, spec=spec).run(graph)
+        check(r.tasks_completed == len(graph.tasks),
+              f"{tag}: {policy} completed {r.tasks_completed}")
+        table[policy] = (r.makespan, r.energy, r.edp, r.resumes)
+    for policy in ("dlb-lewi", "dlb-hybrid", "dlb-prediction"):
+        rep = run_multi_app(MN4, [
+            SimJobSpec(name="gauss", graph=build_gauss_seidel(steps=20,
+                                                              seed=0),
+                       policy=policy, cpus=list(range(24))),
+            SimJobSpec(name="stream", graph=build_stream(rounds=10, seed=1),
+                       policy=policy, cpus=list(range(24, 48)))])
+        sharing[policy] = (rep.apps["gauss"].makespan,
+                           rep.apps["stream"].makespan, rep.total_dlb_calls)
+    return table, sharing
+
+
+def host_runtime(tag: str) -> None:
+    """Phase 20: the quickstart table against the reference's numbers,
+    and one closed ThreadExecutor run of a graph with dependencies."""
+    import threading
+
+    from repro_torch.runtime import Task, TaskGraph, ThreadExecutor
+
+    t0 = time.perf_counter()
+    table, sharing = runtime_tables(tag)
+    for policy, (mk, energy, edp, resumes) in table.items():
+        print(f"[{tag}] gauss-seidel on MN4, {policy:10s} makespan "
+              f"{mk * 1e3:.4f} ms, energy {energy:.4f} J, EDP {edp:.6f}, "
+              f"resumes {resumes}")
+    for policy, (gauss, stream, calls) in sharing.items():
+        print(f"[{tag}] gauss-seidel + stream, {policy:14s} gauss "
+              f"{gauss * 1e3:.4f} ms, stream {stream * 1e3:.4f} ms, DLB "
+              f"calls {calls}")
+    for got, want in ((table, QUICKSTART), (sharing, SHARING)):
+        check(got.keys() == want.keys(), f"{tag}: policies {list(got)}")
+        for policy, row in got.items():
+            check(all(math.isclose(x, y, rel_tol=QUICKSTART_RTOL)
+                      if isinstance(y, float) else x == y
+                      for x, y in zip(row, want[policy], strict=True)),
+                  f"{tag}: {policy} gave {row}, the reference {want[policy]}")
+
+    lock, done = threading.Lock(), {}
+
+    def ran(key) -> None:
+        with lock:
+            done[key] = len(done)
+
+    # six waves of eight, each task after every task of the wave before
+    graph, prev = TaskGraph(), []
+    for wave in range(6):
+        cur = []
+        for i in range(8):
+            task = Task("wave", cost=1.0, fn=partial(ran, (wave, i)))
+            task.depends_on(*prev)
+            cur.append(task)
+            graph.add(task)
+        prev = cur
+    rep = ThreadExecutor(4, policy="prediction").run(graph)
+    order_kept = all(done[(w, i)] > done[(w - 1, j)]
+                     for w in range(1, 6) for i in range(8)
+                     for j in range(8))
+    print(f"[{tag}] ThreadExecutor, 4 workers, prediction: "
+          f"{rep.tasks_completed} of {len(graph.tasks)} tasks, makespan "
+          f"{rep.makespan * 1e3:.3f} ms, dependency order kept: "
+          f"{order_kept}; phase {time.perf_counter() - t0:.2f} s")
+    check(rep.tasks_completed == len(graph.tasks) == len(done) == 48,
+          f"{tag}: {rep.tasks_completed} tasks completed, {len(done)} ran")
+    check(order_kept, f"{tag}: a task ran before its dependencies")
+
+
 def main() -> int:
     import torch
 
@@ -1468,6 +1826,13 @@ def main() -> int:
                                      **small_mixtral)
     train_step_on_card_and_cpu(torch, fa, "float32",
                                "llama4-maverick-400b-a17b")
+    free_card(torch)
+
+    elastic = elastic_drill(torch, kernels, "elastic llama3.2-1b")
+    free_card(torch)
+    traced = traced_serving(torch, kernels, "traced serving llama3.2-1b")
+    free_card(torch)
+    host_runtime("host runtime")
 
     paths = {"llama3.2-1b": llama, "recurrentgemma-2b": rgemma,
              "rwkv6-7b": rwkv, "train llama3.2-1b": train,
@@ -1477,7 +1842,9 @@ def main() -> int:
              "internvl2-1b prefix prefill + decode": internvl,
              "train internvl2-1b": train_internvl,
              "llama4-maverick-400b-a17b (4 of 48 layers)": llama4,
-             "mixtral-8x22b (8 of 56 layers)": mixtral}
+             "mixtral-8x22b (8 of 56 layers)": mixtral,
+             "elastic train llama3.2-1b": elastic,
+             "traced serving llama3.2-1b": traced}
 
     def row(name, src, replaces, err, t):
         return {"name": name, "route": "cuda",

@@ -45,6 +45,7 @@ from .monitoring import DEFAULT_MIN_SAMPLES, AccuracyReport, TaskMonitor
 from .policies import (BusyPolicy, HeteroPredictionPolicy, HybridPolicy,
                        IdlePolicy, Policy, PollDecision, PredictionPolicy)
 from .prediction import CPUPredictor, PredictionConfig
+from .sharing import DLBHybridPolicy, DLBPredictionPolicy, LeWIPolicy
 from .topology import CoreTopology, CoreType
 
 __all__ = [
@@ -153,6 +154,26 @@ def _hetero_prediction(spec: "GovernorSpec",
                        predictor: CPUPredictor | None) -> Policy:
     assert predictor is not None
     return HeteroPredictionPolicy(predictor)
+
+
+@register_policy("dlb-lewi", sharing=True, solo_equivalent="idle")
+def _dlb_lewi(spec: "GovernorSpec",
+              predictor: CPUPredictor | None) -> Policy:
+    return LeWIPolicy()
+
+
+@register_policy("dlb-hybrid", sharing=True, solo_equivalent="hybrid")
+def _dlb_hybrid(spec: "GovernorSpec",
+                predictor: CPUPredictor | None) -> Policy:
+    return DLBHybridPolicy(spin_budget=spec.spin_budget)
+
+
+@register_policy("dlb-prediction", needs_predictor=True, sharing=True,
+                 solo_equivalent="prediction")
+def _dlb_prediction(spec: "GovernorSpec",
+                    predictor: CPUPredictor | None) -> Policy:
+    assert predictor is not None
+    return DLBPredictionPolicy(predictor)
 
 
 # ---------------------------------------------------------------------------

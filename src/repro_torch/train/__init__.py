@@ -1,6 +1,6 @@
-"""Training tier — the port of :mod:`repro.train`: step functions,
-straggler monitoring, gradient compression and the :class:`Trainer`
-(``trainer.py``).  The elastic controller is not ported yet."""
+"""Training tier — the port of :mod:`repro.train`: step functions, the
+elastic controller, straggler monitoring, gradient compression and the
+:class:`Trainer` (``trainer.py``)."""
 
 from .steps import (StepConfig, apply_update, grads_of, make_serve_step,
                     make_train_step)

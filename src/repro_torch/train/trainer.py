@@ -34,7 +34,7 @@ from .compression import init_error_feedback
 from .steps import StepConfig, make_train_step
 from .straggler import StragglerMonitor
 
-__all__ = ["TrainerConfig", "Trainer"]
+__all__ = ["TrainerConfig", "Trainer", "load_state"]
 
 
 @dataclass
@@ -104,16 +104,7 @@ class Trainer:
     def maybe_restore(self) -> bool:
         if self.ckpt is None or self.ckpt.latest_step() is None:
             return False
-        state, step = self.ckpt.restore(self.state())
-        named = dict(self.params.named_parameters())
-        with torch.no_grad():
-            for dst, tree in [(named, state["params"])] + [
-                    (self.opt_state[k], state["opt"][k])
-                    for k in ("mu", "nu", "ef") if k in self.opt_state]:
-                for k, t in named_from_tree(tree, self.cfg).items():
-                    dst[k].copy_(t)
-        self.opt_state["count"] = state["opt"]["count"].to(self.device)
-        self.step = step
+        load_state(self, *self.ckpt.restore(self.state()))
         return True
 
     # -- main loop -----------------------------------------------------------
@@ -152,3 +143,19 @@ class Trainer:
 
     def close(self) -> None:
         self.data.close()
+
+
+def load_state(trainer: Trainer, state: dict, step: int) -> None:
+    """Put a checkpoint tree of :meth:`Trainer.state`'s structure (as a
+    :class:`~repro_torch.checkpoint.CheckpointManager` restores it, or as
+    the elastic controller's rollback returns it) into ``trainer``'s
+    parameters and optimizer state, in place, and resume at ``step``."""
+    named = dict(trainer.params.named_parameters())
+    with torch.no_grad():
+        for dst, tree in [(named, state["params"])] + [
+                (trainer.opt_state[k], state["opt"][k])
+                for k in ("mu", "nu", "ef") if k in trainer.opt_state]:
+            for k, t in named_from_tree(tree, trainer.cfg).items():
+                dst[k].copy_(t)
+    trainer.opt_state["count"] = state["opt"]["count"].to(trainer.device)
+    trainer.step = step
