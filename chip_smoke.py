@@ -52,6 +52,7 @@ and no result line is printed):
    never calls it; ``scaled_dot_product_attention`` takes no softcap, so
    gemma2-9b's shape has none), beside the kernel's bound, at the serving
    shapes (K1 also at S=2048, at the full-width train step's B=8, S=128,
+   at phase 21's B=4, S=2048,
    at gemma2-9b's, deepseek-coder-33b's, llama4-maverick's and
    mixtral-8x22b's serving shapes and at internvl2-1b's prefix prefill
    and train step; K2 and K3 at S=2048);
@@ -162,6 +163,34 @@ and no result line is printed):
     dependent waves of eight tasks: all done, each after its
     dependencies.
 
+21. remat on the card: one train step of full-width llama3.2-1b (bf16
+    parameters, float32 AdamW state and gradients, ``ce_seq_chunk`` 512)
+    on a fixed batch of 4 × 2048 tokens, accum 1, from the same seeded
+    weights and batch under ``remat`` "none", "full" and "dots"
+    (``repro_torch.launch.cells.build_cell`` on the card): equal first
+    losses, grad norms within 1e-5 relative, K1 16, 32 and 32 launches,
+    and peak memory ordered full < dots < none.  Prints each mode's
+    ``max_memory_allocated`` (less what else the card held), the FLOPs
+    ``FlopCounterMode`` counts in a second step, and the ms of a step as
+    the median of 3 after it;
+22. the dry-run held against the card: ``repro_torch.launch.dryrun``
+    over all 40 (arch × shape) cells on the meta device, in worker
+    processes (33 ok, 7 skipped with the reference's reason, a row
+    each); then phase 21's cell on meta under each mode, whose peak must
+    lie within ±15 % of phase 21's measured peak and whose FLOPs must
+    equal ``FlopCounterMode``'s count of the real step exactly; the
+    plain backwards' working sets on the card (phase 21's attention, a
+    window, a softcap, the scan, the WKV) within ±15 % of the model the
+    dry-run's meta stand-in holds; and the same FLOP equality for a
+    small recurrentgemma-2b prefill (K1, K2) and a small rwkv6-7b
+    prefill (K3) run on the card;
+23. the analyzer: ``repro_torch.analysis``'s static passes over the
+    checkout's ``src/repro_torch`` return 0, and phase 20's
+    ``ThreadExecutor`` run repeats under the port's strict lock-order
+    witness with no violation and no contradiction of the declared
+    order (traced, so that the executor's, the scheduler's, the
+    monitor's, the recorder's and the bus's locks nest).
+
 The launch counts of each serving path and of each full-width train run
 are set to 0 just before it and read just after; a kernel that the path
 does not run must show 0.  No kernel of the MoE layer: the reference
@@ -184,14 +213,6 @@ from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 from pathlib import Path
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core FLOP/s
-#: and device-memory bytes/s
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES = 3.35e12
-#: float32 FLOP/s outside the tensor cores, and TF32 FLOP/s on them (the
-#: same data sheet)
-PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 SCAN_TOL = 1e-5
 WKV_TOL = 1e-4
@@ -241,50 +262,6 @@ def wkv_inputs(torch, B, H, S, *, seed, rkv_dtype=None):
         r, k, v = (t.to(rkv_dtype) for t in (r, k, v))
     w = torch.exp(-torch.exp(randn(B, H, S, 64) - 1.0))
     return r, k, v, w, randn(H, 64) * 0.1, randn(B, H, 64, 64) * 0.5
-
-
-def attention_bound(B, S, H, KV, D, window=None,
-                    softcap=None) -> tuple[float, str]:
-    """Least time on the card for causal bf16 attention, ms: its
-    operations (4·D per unmasked query-key pair at the tensor-core peak,
-    and with a softcap 3 more a pair — divide, tanh, multiply — at the
-    float32 peak), or the bytes of q, k, v and o once each at the memory
-    rate, whichever is larger."""
-    w = S if window is None else min(window, S)
-    pairs = sum(min(i + 1, w) for i in range(S))
-    ops_s = 4 * B * H * pairs * D / PEAK_BF16_FLOPS
-    if softcap is not None:
-        ops_s += 3 * B * H * pairs / PEAK_F32_FLOPS
-    bytes_s = (2 * B * S * H * D + 2 * B * S * KV * D) * 2 / PEAK_BYTES
-    return (max(ops_s, bytes_s) * 1e3,
-            "operations" if ops_s >= bytes_s else "bytes")
-
-
-def scan_bound(*tensors) -> tuple[float, str]:
-    """Least time on the card for the scan, ms: the bytes of its inputs
-    (a, b, h0) read once and its outputs (h, h_final) written once, at
-    the memory rate.  Two flops a step: the bytes bound it."""
-    return sum(t.numel() * t.element_size() for t in tensors) \
-        / PEAK_BYTES * 1e3, "bytes"
-
-
-def wkv_bound(inputs, outputs) -> tuple[float, str]:
-    """Least time on the card for the WKV, ms: the bytes of its inputs
-    (r, k, v, w, u and s0 where one is passed) read once and its outputs
-    (y, s_final) written once at the memory rate, or the recurrence's
-    operations — y_t = r_t S + (r_t·(u⊙k_t)) v_t and S = w_t⊙S + k_tᵀv_t,
-    5·N² + 5·N a token and head, of which the two products r_t S and
-    k_tᵀv_t (4·N²) at the TF32 tensor-core peak and the rest (N² + 5·N)
-    at the float32 peak outside the tensor cores — whichever is
-    larger."""
-    r = inputs[0]
-    B, H, S, N = r.shape
-    bytes_s = sum(t.numel() * t.element_size()
-                  for t in list(inputs) + list(outputs)) / PEAK_BYTES
-    ops_s = B * H * S * (4 * N * N / PEAK_TF32_FLOPS
-                         + (N * N + 5 * N) / PEAK_F32_FLOPS)
-    return (max(ops_s, bytes_s) * 1e3,
-            "operations" if ops_s > bytes_s else "bytes")
 
 
 def device_ms(torch, fn, calls: int = 50, replays: int = 5) -> float:
@@ -637,6 +614,9 @@ def check_wkv(torch, k3, ref) -> float:
 def time_attention(torch, fa, ref, B, S, H, KV, D, window=None,
                    softcap=None) -> dict:
     from torch.nn import functional as F
+
+    from repro_torch.kernels.ops import attention_flops
+    from repro_torch.launch.roofline import attention_bound
     sdpa_gqa = tuple(int(x) for x in torch.__version__.split(".")[:2]) \
         >= (2, 5)
     q, k, v = attention_inputs(torch, B, S, H, KV, D, torch.bfloat16,
@@ -690,8 +670,7 @@ def time_attention(torch, fa, ref, B, S, H, KV, D, window=None,
     print(f"[time] K1 {row['shape']}: kernel {row['ms']:.5f} ms, plain "
           f"{row['plain_ms']:.5f} ms, sdpa {lib}, bound "
           f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
-    w = S if window is None else min(window, S)
-    flops = 4 * B * H * D * sum(min(i + 1, w) for i in range(S))
+    flops = attention_flops(B, S, H, D, window)
     lib = "" if row["library_ms"] is None \
         else f" (sdpa {flops / row['library_ms'] / 1e9:.2f})"
     print(f"[time] K1 {row['shape']}: {flops / row['ms'] / 1e9:.2f} TFLOP/s "
@@ -700,6 +679,8 @@ def time_attention(torch, fa, ref, B, S, H, KV, D, window=None,
 
 
 def time_scan(torch, k2, ref, B, S, R) -> dict:
+    from repro_torch.launch.roofline import scan_bound
+
     a, b, _ = scan_inputs(torch, B, S, R, seed=S)
     h, hf = k2.rglru_scan(a, b)
     row = {
@@ -723,6 +704,8 @@ def time_scan(torch, k2, ref, B, S, R) -> dict:
 def time_wkv(torch, k3, ref, B, H, S, *, zero_s0: bool) -> dict:
     """K3 at the serving path's inputs: bf16 r/k/v, f32 w and u, and (as
     prefill passes it) a zero initial state when ``zero_s0``."""
+    from repro_torch.launch.roofline import wkv_bound
+
     r, k, v, w, u, s0 = wkv_inputs(torch, B, H, S, seed=S,
                                    rkv_dtype=torch.bfloat16)
     s0 = torch.zeros_like(s0) if zero_s0 else None
@@ -1635,10 +1618,6 @@ def runtime_tables(tag: str) -> tuple[dict, dict]:
 def host_runtime(tag: str) -> None:
     """Phase 20: the quickstart table against the reference's numbers,
     and one closed ThreadExecutor run of a graph with dependencies."""
-    import threading
-
-    from repro_torch.runtime import Task, TaskGraph, ThreadExecutor
-
     t0 = time.perf_counter()
     table, sharing = runtime_tables(tag)
     for policy, (mk, energy, edp, resumes) in table.items():
@@ -1657,6 +1636,19 @@ def host_runtime(tag: str) -> None:
                       for x, y in zip(row, want[policy], strict=True)),
                   f"{tag}: {policy} gave {row}, the reference {want[policy]}")
 
+    thread_waves(tag)
+    print(f"[{tag}] phase {time.perf_counter() - t0:.2f} s")
+
+
+def thread_waves(tag: str, traced: bool = False) -> None:
+    """A closed ThreadExecutor run of six dependent waves of eight tasks
+    on four workers (with ``traced``, into a ``TraceRecorder`` on its
+    bus): all done, each after its dependencies."""
+    import threading
+
+    from repro_torch.runtime import Task, TaskGraph, ThreadExecutor
+    from repro_torch.trace import TraceRecorder
+
     lock, done = threading.Lock(), {}
 
     def ran(key) -> None:
@@ -1673,17 +1665,313 @@ def host_runtime(tag: str) -> None:
             cur.append(task)
             graph.add(task)
         prev = cur
-    rep = ThreadExecutor(4, policy="prediction").run(graph)
+    ex = ThreadExecutor(4, policy="prediction")
+    rec = TraceRecorder(bus=ex.bus) if traced else None
+    rep = ex.run(graph)
     order_kept = all(done[(w, i)] > done[(w - 1, j)]
                      for w in range(1, 6) for i in range(8)
                      for j in range(8))
     print(f"[{tag}] ThreadExecutor, 4 workers, prediction: "
           f"{rep.tasks_completed} of {len(graph.tasks)} tasks, makespan "
           f"{rep.makespan * 1e3:.3f} ms, dependency order kept: "
-          f"{order_kept}; phase {time.perf_counter() - t0:.2f} s")
+          f"{order_kept}"
+          + (f", {len(rec.events)} events traced" if traced else ""))
     check(rep.tasks_completed == len(graph.tasks) == len(done) == 48,
           f"{tag}: {rep.tasks_completed} tasks completed, {len(done)} ran")
     check(order_kept, f"{tag}: a task ran before its dependencies")
+
+
+# -- 21.-23. remat, the dry-run and the analyzer -----------------------------------
+
+#: phase 21's cell: full-width llama3.2-1b, 4 rows of 2048 tokens, accum 1
+REMAT_ARCH = "llama3.2-1b"
+REMAT_MODES = ("none", "full", "dots")
+#: phase 22's bound on the dry-run's peak against the card's
+PEAK_RTOL = 0.15
+
+
+def _remat_setup():
+    """Phase 21's shape and training knobs."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.cells import TrainKnobs
+
+    return (ShapeSpec("train_4x2048", 2048, 4, "train"),
+            TrainKnobs(accum=1, ce_seq_chunk=512))
+
+
+def _remat_cell(remat: str, device: str):
+    from repro_torch.launch.cells import build_cell
+
+    shape, knobs = _remat_setup()
+    return build_cell(REMAT_ARCH, shape, {"remat": remat}, knobs=knobs,
+                      device=device)
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def remat_on_card(torch, kernels: dict, card: str, tag: str
+                  ) -> tuple[dict, dict]:
+    """Phase 21; returns each mode's numbers and the phase's launch
+    counts, read just after it."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    fa = kernels["flash_attention"]
+    for mod in kernels.values():
+        mod.launches = 0
+    out = {}
+    for remat in REMAT_MODES:
+        free_card(torch)
+        cell = _remat_cell(remat, "cuda")
+        check(cell.cfg.param_dtype == "bfloat16"
+              and cell.static_notes["accum"] == 1, f"{tag}: {cell.cfg}")
+        args = _nbytes(t for ts in cell.argument_tensors().values()
+                       for t in ts)
+        torch.cuda.synchronize()
+        others = torch.cuda.memory_allocated() - args
+        torch.cuda.reset_peak_memory_stats()
+        before = fa.launches
+        m = cell.fn(*cell.args)[2]      # the state stays in cell.args
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        k1 = fa.launches - before
+        peak = torch.cuda.max_memory_allocated() - others
+        with FlopCounterMode(display=False) as counter:
+            cell.fn(*cell.args)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            float(cell.fn(*cell.args)[2]["loss"])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        n_layers = cell.cfg.n_layers
+        out[remat] = {"loss": loss, "grad_norm": gnorm, "k1": k1,
+                      "peak": peak, "args": args, "others": others,
+                      "flops": counter.get_total_flops(),
+                      "ms": sorted(ms)[1], "ms_all": ms}
+        print(f"[{tag}] remat {remat:4s}: first loss {loss!r}, grad norm "
+              f"{gnorm!r}, K1 {k1} launches; peak memory "
+              f"{peak / 2**30:.3f} GiB ({peak} B; arguments "
+              f"{args / 2**30:.3f} GiB, {others} B else on the card); "
+              f"FlopCounterMode {out[remat]['flops']:.6e} FLOPs a step; "
+              f"ms a step {out[remat]['ms']:.3f} (median of "
+              f"{[round(x, 3) for x in ms]}) [{card}]")
+        del cell, m, counter
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    losses = {r: o["loss"] for r, o in out.items()}
+    check(len(set(losses.values())) == 1,
+          f"{tag}: first losses differ: {losses}")
+    norms = [o["grad_norm"] for o in out.values()]
+    check(max(norms) - min(norms) <= 1e-5 * max(norms),
+          f"{tag}: grad norms differ: {norms}")
+    want = {"none": n_layers, "full": 2 * n_layers, "dots": 2 * n_layers}
+    check({r: o["k1"] for r, o in out.items()} == want,
+          f"{tag}: K1 launches {[o['k1'] for o in out.values()]}, want "
+          f"{want}")
+    check(out["full"]["peak"] < out["dots"]["peak"] < out["none"]["peak"],
+          f"{tag}: peaks {[o['peak'] for o in out.values()]} are not "
+          "ordered full < dots < none")
+    check(launches["rglru_scan"] == launches["wkv6"] == 0,
+          f"{tag}: launches {launches}")
+    free_card(torch)
+    return out, launches
+
+
+#: phase 22's small prefills on the card: (arch, overrides of its smoke
+#: config that let K1 run as in the serving phases, batch, length)
+SMALL_PREFILLS = (
+    ("recurrentgemma-2b", dict(d_model=256, n_heads=4, kv_heads=1,
+                               head_dim=64, d_ff=512, rnn_width=256), 2,
+     300),
+    ("rwkv6-7b", {}, 2, 300),
+)
+
+
+def dryrun_against_card(torch, kernels: dict, remat: dict, card: str,
+                        tag: str) -> dict:
+    """Phase 22; returns the launch counts of its runs on the card, read
+    just after them."""
+    import os
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import (SHAPES, ShapeSpec, all_cells,
+                                     cell_runnable, get_config)
+    from repro_torch.launch.cells import build_cell
+    from repro_torch.launch.dryrun import run_cell, run_cells
+    from repro_torch.launch.roofline import count_step
+
+    t0 = time.perf_counter()
+    jobs = max(1, min(8, os.cpu_count() or 1))
+    records, skips, failures = run_cells(all_cells(), save=False, jobs=jobs)
+    print(f"[{tag}] {len(records)} cells ok, {len(skips)} skipped, "
+          f"{len(failures)} failed on meta in {jobs} processes, "
+          f"{time.perf_counter() - t0:.1f} s; "
+          f"{sum(r['fits_80GB'] for r in records)} fit one card [{card}]")
+    check(not failures, f"{tag}: cells failed: {failures}")
+    want_skips = {(a, s, cell_runnable(get_config(a), SHAPES[s])[1])
+                  for a, s in all_cells()
+                  if not cell_runnable(get_config(a), SHAPES[s])[0]}
+    check(len(records) == 33 and len(skips) == 7
+          and set(skips) == want_skips,
+          f"{tag}: {len(records)} ok and skips {skips}")
+
+    before = {name: mod.launches for name, mod in kernels.items()}
+    shape, knobs = _remat_setup()
+    for mode in REMAT_MODES:
+        rec = run_cell(REMAT_ARCH, shape, cfg_overrides={"remat": mode},
+                       knobs=knobs, save=False, verbose=False)
+        card_run = remat[mode]
+        est = rec["memory"]["peak_bytes"]
+        err = est / card_run["peak"] - 1.0
+        print(f"[{tag}] {REMAT_ARCH} 4 × 2048 remat {mode:4s}: peak "
+              f"{est / 2**30:.3f} GiB on meta, {card_run['peak'] / 2**30:.3f} "
+              f"GiB on the card ({err * 100:+.2f} %); arguments "
+              f"{rec['memory']['argument_bytes']} B on meta, "
+              f"{card_run['args']} B on the card; FLOPs {rec['flops']} on "
+              f"meta, {card_run['flops']} counted on the card; roofline "
+              f"{rec['terms']['compute_s'] * 1e3:.3f} ms compute, "
+              f"{rec['terms']['memory_s'] * 1e3:.3f} ms memory against "
+              f"{card_run['ms']:.3f} ms measured [{card}]")
+        check(abs(err) <= PEAK_RTOL,
+              f"{tag}: {mode}'s peak estimate is {err * 100:+.2f} % off")
+        check(rec["flops"] == card_run["flops"],
+              f"{tag}: {mode}: {rec['flops']} FLOPs on meta, "
+              f"{card_run['flops']} on the card")
+        check(rec["memory"]["argument_bytes"] == card_run["args"],
+              f"{tag}: {mode}'s arguments differ")
+    check({name: mod.launches for name, mod in kernels.items()} == before,
+          f"{tag}: a meta run launched a kernel")
+    plain_backward_on_card(torch, card, tag)
+
+    for mod in kernels.values():
+        mod.launches = 0
+    for arch, overrides, B, S in SMALL_PREFILLS:
+        shape = ShapeSpec("small_prefill", S, B, "prefill")
+        meta = build_cell(arch, shape, overrides, smoke=True)
+        est = count_step(meta.fn, meta.args)
+        cell = build_cell(arch, shape, overrides, smoke=True, device="cuda")
+        start = {name: mod.launches for name, mod in kernels.items()}
+        with FlopCounterMode(display=False) as counter:
+            logits, _ = cell.fn(*cell.args)
+        torch.cuda.synchronize()
+        ran = {name: mod.launches - start[name]
+               for name, mod in kernels.items()}
+        print(f"[{tag}] small {arch} prefill B={B} S={S}: FLOPs "
+              f"{est.flops} on meta, {counter.get_total_flops()} counted "
+              f"on the card; launches {ran} [{card}]")
+        check(est.flops == counter.get_total_flops(),
+              f"{tag}: small {arch} prefill's FLOPs differ")
+        check(bool(torch.isfinite(logits.float()).all())
+              and tuple(logits.shape) == (B, cell.cfg.padded_vocab()),
+              f"{tag}: small {arch} prefill's logits")
+        kinds = {"rglru_scan": "recurrentgemma" in arch,
+                 "wkv6": "rwkv" in arch,
+                 "flash_attention": "recurrentgemma" in arch}
+        check(all((ran[k] > 0) == v for k, v in kinds.items()),
+              f"{tag}: small {arch} prefill launched {ran}")
+        del cell, meta
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    free_card(torch)
+    return launches
+
+
+#: the plain backwards whose working set phase 22 measures: phase 21's
+#: attention (bf16), one with a window and one with a softcap, the scan
+#: and the WKV
+PLAIN_BACKWARDS = (
+    ("flash_attention", (4, 2048, 32, 8, 64), "bfloat16", None, None),
+    ("flash_attention", (1, 1024, 10, 1, 256), "bfloat16", 64, None),
+    ("flash_attention", (2, 512, 16, 8, 128), "float32", None, 30.0),
+    ("rglru_scan", (1, 512, 2560), "float32", None, None),
+    ("wkv6", (1, 8, 128), "float32", None, None),
+)
+#: phase 22's bound on the working-set model against the card
+WORKSPACE_RTOL = 0.15
+
+
+def plain_backward_on_card(torch, card: str, tag: str) -> None:
+    """Each plain backward's working set on the card (its peak beyond its
+    inputs, output gradients and input gradients, from
+    ``max_memory_allocated``) against
+    ``ops.plain_grad_workspace(..., device="cuda")``, which the dry-run's
+    meta stand-in holds."""
+    from repro_torch.kernels import ops, ref
+
+    for name, dims, dtype, window, softcap in PLAIN_BACKWARDS:
+        dt = getattr(torch, dtype)
+        g = torch.Generator(device="cuda").manual_seed(0)
+
+        def randn(*shape, f=None):
+            x = torch.randn(shape, generator=g, device="cuda")
+            return (x if f is None else f(x)).to(dt)
+        if name == "flash_attention":
+            B, S, H, KV, D = dims
+            inputs = (randn(B, S, H, D), randn(B, S, KV, D),
+                      randn(B, S, KV, D))
+            grads = (randn(B, S, H, D),)
+            options = (window, softcap)
+
+            def plain(q, k, v):
+                return ref.attention_ref(q, k, v, window=window,
+                                         softcap=softcap)
+        elif name == "rglru_scan":
+            B, S, R = dims
+            inputs = (randn(B, S, R, f=torch.sigmoid), randn(B, S, R), None)
+            grads = (randn(B, S, R), randn(B, R))
+            options, plain = (), ops._rglru_plain
+        else:
+            B, H, S = dims
+            inputs = tuple(randn(B, H, S, 64) for _ in range(3)) \
+                + (randn(B, H, S, 64, f=torch.sigmoid), randn(H, 64), None)
+            grads = (randn(B, H, S, 64), randn(B, H, 64, 64))
+            options, plain = (), ref.wkv6_ref
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = ops._plain_grads(plain, inputs, grads)
+        torch.cuda.synchronize()
+        held = torch.cuda.max_memory_allocated() - base \
+            - _nbytes(x for x in got if x is not None)
+        shapes = [None if x is None else x.shape for x in inputs]
+        model = ops.plain_grad_workspace(name, shapes, dt, options, "cuda")
+        err = model / held - 1.0
+        print(f"[{tag}] plain {name} backward {dims} {dtype}"
+              + (f" window {window}" if window else "")
+              + (f" softcap {softcap:g}" if softcap else "")
+              + f": working set {held} B on the card, {model} B modelled "
+              f"({err * 100:+.2f} %) [{card}]")
+        check(abs(err) <= WORKSPACE_RTOL,
+              f"{tag}: the plain {name} backward's working set is "
+              f"{err * 100:+.2f} % off its model")
+        del inputs, grads, got
+
+
+def analyzer_on_card(card: str, tag: str) -> None:
+    """Phase 23: the static passes over the checkout's port, and phase
+    20's threaded run, traced, under the port's strict lock-order
+    witness."""
+    from repro_torch.analysis import install_witness, uninstall_witness
+    from repro_torch.analysis.__main__ import main as analyze
+
+    t0 = time.perf_counter()
+    rc = analyze([])
+    print(f"[{tag}] python -m repro_torch.analysis: exit {rc} in "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    check(rc == 0, f"{tag}: the analyzer found something")
+    witness = install_witness(strict=True)
+    try:
+        thread_waves(tag, traced=True)
+    finally:
+        uninstall_witness()
+    problems = witness.check_declared()
+    print(f"[{tag}] strict witness: {len(witness.observed)} lock nestings "
+          f"observed {sorted(witness.observed)}, {len(witness.violations)} "
+          f"violations, {len(problems)} contradictions of LOCK_ORDER "
+          f"[{card}]")
+    check(not witness.violations and not problems and witness.observed,
+          f"{tag}: {witness.violations} {problems}")
 
 
 def main() -> int:
@@ -1717,6 +2005,7 @@ def main() -> int:
     time_attention(torch, fa, ref, 1, 23, 10, 1, 256, window=2048)
     time_attention(torch, fa, ref, 1, 2048, 10, 1, 256, window=2048)
     time_attention(torch, fa, ref, 8, 128, 32, 8, 64)       # train step
+    time_attention(torch, fa, ref, 4, 2048, 32, 8, 64)      # phase 21's
     time_attention(torch, fa, ref, 1, 32, 16, 8, 256, window=4096,
                    softcap=50.0)                          # gemma2-9b
     time_attention(torch, fa, ref, 1, 32, 56, 8, 128)      # deepseek-33b
@@ -1834,6 +2123,12 @@ def main() -> int:
     free_card(torch)
     host_runtime("host runtime")
 
+    remat, remat_launches = remat_on_card(torch, kernels, card,
+                                          "remat llama3.2-1b")
+    dryrun_launches = dryrun_against_card(torch, kernels, remat, card,
+                                          "dry-run")
+    analyzer_on_card(card, "analyzer")
+
     paths = {"llama3.2-1b": llama, "recurrentgemma-2b": rgemma,
              "rwkv6-7b": rwkv, "train llama3.2-1b": train,
              "gemma2-9b": gemma, "deepseek-coder-33b": deepseek,
@@ -1844,7 +2139,10 @@ def main() -> int:
              "llama4-maverick-400b-a17b (4 of 48 layers)": llama4,
              "mixtral-8x22b (8 of 56 layers)": mixtral,
              "elastic train llama3.2-1b": elastic,
-             "traced serving llama3.2-1b": traced}
+             "traced serving llama3.2-1b": traced,
+             "remat llama3.2-1b (none, full, dots; 4 × 2048)":
+             remat_launches,
+             "dry-run's small prefills on the card": dryrun_launches}
 
     def row(name, src, replaces, err, t):
         return {"name": name, "route": "cuda",

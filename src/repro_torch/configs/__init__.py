@@ -9,14 +9,24 @@ and internvl2-1b and musicgen-medium, which take a frontend ``prefix``),
 the mixture-of-experts ones (mixtral-8x22b: every layer MoE, 8 experts,
 top-2, sliding window; llama4-maverick-400b-a17b: dense and MoE layers
 1:1, 128 experts, top-1 and a shared expert), recurrentgemma-2b and
-rwkv6-7b.
+rwkv6-7b.  The ``SHAPES`` table and its helpers are the reference's:
+the four input-shape cells, and which (arch × shape) cells are runnable
+(``long_500k`` needs a sub-quadratic decode path); the dry-run of
+:mod:`repro_torch.launch.dryrun` walks them.
 """
 
 from __future__ import annotations
 
 import importlib
+from dataclasses import dataclass
 
 from ..models.config import ModelConfig
+
+ARCHS = [
+    "internvl2_1b", "gemma2_9b", "deepseek_coder_33b", "llama3_2_1b",
+    "qwen1_5_110b", "mixtral_8x22b", "llama4_maverick_400b_a17b",
+    "musicgen_medium", "recurrentgemma_2b", "rwkv6_7b",
+]
 
 #: canonical ids (CLI, exactly as in the reference) → module names
 ARCH_IDS = {
@@ -30,6 +40,22 @@ ARCH_IDS = {
     "musicgen-medium": "musicgen_medium",
     "recurrentgemma-2b": "recurrentgemma_2b",
     "rwkv6-7b": "rwkv6_7b",
+}
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
 }
 
 
@@ -49,4 +75,21 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
 
 
-__all__ = ["ARCH_IDS", "get_config", "get_smoke_config"]
+def cell_runnable(cfg: ModelConfig, shape: ShapeSpec) -> tuple[bool, str]:
+    """(runnable?, reason-if-not) for an (arch × shape) cell."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
+        return False, ("full-attention layers ⇒ 500k KV cache is "
+                       "O(S) per layer; skipped per assignment note")
+    return True, ""
+
+
+def all_cells() -> list[tuple[str, str]]:
+    out = []
+    for arch in ARCH_IDS:
+        for shape in SHAPES:
+            out.append((arch, shape))
+    return out
+
+
+__all__ = ["ARCHS", "ARCH_IDS", "SHAPES", "ShapeSpec", "get_config",
+           "get_smoke_config", "cell_runnable", "all_cells"]

@@ -2,11 +2,13 @@
 entry points (the port of :mod:`repro.models`)."""
 
 from .config import LayerKind, ModelConfig
-from .transformer import (Transformer, decode_step, forward, init_cache,
-                          init_params, lm_loss, prefill)
+from .sharding import Rules
+from .transformer import (Transformer, cache_specs, decode_step, forward,
+                          init_cache, init_params, lm_loss, param_specs,
+                          prefill)
 
 __all__ = [
-    "LayerKind", "ModelConfig", "Transformer",
-    "decode_step", "forward", "init_cache", "init_params", "lm_loss",
-    "prefill",
+    "LayerKind", "ModelConfig", "Rules", "Transformer",
+    "cache_specs", "decode_step", "forward", "init_cache", "init_params",
+    "lm_loss", "param_specs", "prefill",
 ]

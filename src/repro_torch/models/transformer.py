@@ -28,6 +28,8 @@ Public entry points, with the reference's names and semantics:
   "wkv"}`` for RWKV
 * :func:`prefill` — forward that also fills the decode cache
 * :func:`decode_step` — one-token serving step
+* :func:`param_specs`, :func:`cache_specs` — the reference's partition
+  specs, keyed by the port's names (one card shards nothing)
 
 Caches are updated in place (the reference returns new arrays); each
 function still returns the cache it was given, so callers read alike.
@@ -41,19 +43,23 @@ shifts to whatever dtype its cache holds at that moment (ROADMAP §3).
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .config import LayerKind, ModelConfig
 from .layers import (AttnLayer, MoELayer, decode_gqa_attention,
                      fill_attn_layer, fill_moe_layer, rmsnorm)
 from .rglru import RGLRULayer, fill_rglru_layer
 from .rwkv import HEAD_SIZE, RWKVLayer, fill_rwkv_layer
+from .sharding import P, Rules
 
 __all__ = ["Transformer", "init_params", "forward", "lm_loss", "init_cache",
-           "prefill", "decode_step", "resolve_device"]
+           "prefill", "decode_step", "resolve_device", "param_specs",
+           "cache_specs"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "int8": torch.int8}
@@ -199,8 +205,80 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
+# Partition specs (the reference's rules over the port's parameter names)
+# ---------------------------------------------------------------------------
+
+_TP_IN = {"wq", "w1", "w3", "w_gate", "w_y", "wr", "wg",
+          "a_w2"}          # (d, X): shard X over tp, d over fsdp
+_TP_OUT = {"wo", "w2", "w_out", "b_w2"}  # (X, d): shard X over tp
+
+
+def _leaf_spec(path: list[str], ndim: int, cfg: ModelConfig, rules: Rules,
+               tp_size: int) -> P:
+    """The reference's ``_leaf_spec`` for one leaf at ``path`` (its dict
+    keys); the port holds no stacked leading axis."""
+    name = path[-1]
+    f, t = rules.fsdp, rules.tp
+    if name == "embed":
+        return P(t, f)
+    if name == "lm_head":
+        return P(f, t)
+    if name == "final_ln":
+        return P(None)
+    if name == "router":
+        return P(f, None)
+    if ndim == 3 and name in ("w1", "w2", "w3"):
+        # MoE expert weights (E, d, ff) / (E, ff, d)
+        if cfg.n_experts % tp_size == 0 and cfg.n_experts >= tp_size:
+            return P(t, f, None) if name != "w2" else P(t, None, f)
+        return P(None, f, t) if name != "w2" else P(None, t, f)
+    if ndim == 2 and name in _TP_IN:
+        return P(f, t)
+    if ndim == 2 and name in _TP_OUT:
+        return P(t, f)
+    if ndim == 2 and name in ("conv_w",):
+        return P(None, t)
+    if ndim == 2 and name in ("wk", "wv"):
+        if set(path) & {"tm", "cm"}:
+            return P(f, t)      # RWKV projections: heads shard over tp
+        # attention K/V projections: KV heads replicated over the model
+        # axis, as the reference's
+        return P(f, None)
+    # gate blocks (H, k, k), biases, norms, mus, loras: replicate
+    return P(*([None] * ndim))
+
+
+def param_specs(cfg: ModelConfig, rules: Rules, tp_size: int) -> dict:
+    """The reference's partition spec of every parameter, keyed by the
+    port's parameter names (``layers.<i>.<path>``), from a model built
+    on the meta device (nothing is allocated)."""
+    model = Transformer(cfg, device="meta")
+    out = {}
+    for name, p in model.named_parameters():
+        path = name.split(".")
+        if path[0] == "layers":
+            path = path[2:]
+        out[name] = _leaf_spec(path, p.dim(), cfg, rules, tp_size)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Loss
 # ---------------------------------------------------------------------------
+
+#: what ``remat="dots"`` saves: the products without batch dimensions
+#: (a (B, S, d) @ (d, n) reaches the dispatcher as ``mm`` after a view)
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``:
+    save every 2-D product's result, recompute everything else — the
+    batched products (``bmm``: the MoE experts) and the kernels
+    (``repro_torch::flash_attention`` and the others) included."""
+    if op in _DOTS_SAVED:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _ce(logits: torch.Tensor, labels: torch.Tensor
@@ -226,28 +304,34 @@ def lm_loss(params: Transformer, tokens: torch.Tensor, labels: torch.Tensor,
     With a ``prefix`` (B, F, d) the labels are (B, F + S_tok), −1 over
     the prefix, as :class:`repro_torch.data.SyntheticLM` makes them.
 
-    ``cfg.remat == "full"`` recomputes each pattern unit in the backward
-    pass (``torch.utils.checkpoint``), as the reference's scan body is
-    checkpointed; the trailing ``rest`` layers are not, as there.  A MoE
-    layer checkpoints each of its ``moe_seq_chunk`` chunks, as the
-    reference's.  With ``cfg.ce_seq_chunk`` dividing S the unembedding
-    and CE run chunk by chunk, each chunk checkpointed, so the (B, S, V)
-    logits are never all alive.
+    ``cfg.remat`` says what each pattern unit keeps for the backward
+    pass, as the reference's ``_remat`` does for its scan body:
+    ``"none"`` keeps everything; ``"dots"`` checkpoints the unit
+    (``torch.utils.checkpoint``) with a selective policy that saves the
+    result of every product without batch dimensions (``aten.mm`` and
+    ``aten.addmm``: the projections and the MLP) and recomputes
+    everything else, the batched products (the MoE experts' ``bmm``) and
+    the kernel calls included; any other value (``"full"``) recomputes
+    the whole unit.  The trailing ``rest`` layers are not checkpointed,
+    as there.  A MoE layer checkpoints each of its ``moe_seq_chunk``
+    chunks, as the reference's.  With ``cfg.ce_seq_chunk`` dividing S
+    the unembedding and CE run chunk by chunk, each chunk checkpointed,
+    so the (B, S, V) logits are never all alive.
     """
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"lm_loss: remat {cfg.remat!r}; the port has 'none' and 'full'")
     h = params.embed_tokens(tokens, prefix)
     S = h.shape[1]
     positions = torch.arange(S, device=h.device)
     P = len(cfg.pattern)
+    if cfg.remat == "none":
+        unit = _run
+    else:
+        context = {"context_fn": partial(create_selective_checkpoint_contexts,
+                                         _dots_policy)} \
+            if cfg.remat == "dots" else {}
+        unit = partial(checkpoint, _run, use_reentrant=False, **context)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for u in range(cfg.n_units):
-        if cfg.remat == "full":
-            h, a = checkpoint(_run, params, h, positions, u * P, P,
-                              use_reentrant=False)
-        else:
-            h, a = _run(params, h, positions, u * P, P)
+        h, a = unit(params, h, positions, u * P, P)
         aux = aux + a
     h, a = _run(params, h, positions, cfg.n_units * P, cfg.n_remainder)
     aux = aux + a
@@ -323,6 +407,17 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
         cache.append({"k": torch.zeros(shape, dtype=cdtype, device=device),
                       "v": torch.zeros(shape, dtype=cdtype, device=device)})
     return cache
+
+
+def cache_specs(cache_shapes: list[dict], rules: Rules) -> list[dict]:
+    """Batch-shard every cache leaf (the model axis is unused by caches),
+    as the reference's; ``cache_shapes`` is a cache of
+    :func:`init_cache`'s form, of tensors or anything with ``ndim``."""
+    def spec(leaf):
+        if not hasattr(leaf, "ndim") or leaf.ndim == 0:
+            return P()
+        return P(rules.batch, *([None] * (leaf.ndim - 1)))
+    return [{k: spec(v) for k, v in layer.items()} for layer in cache_shapes]
 
 
 # ---------------------------------------------------------------------------

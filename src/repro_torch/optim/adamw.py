@@ -5,8 +5,8 @@ cast on store to ``state_dtype`` and to each parameter's dtype; weight
 decay inside the step (``p − lr·(m̂/(√v̂+ε) + wd·p)``); bias corrections
 ``1 − b**count`` in float32.  ``torch.optim.AdamW`` is not used: on
 bfloat16 parameters it does its math in bfloat16, decays before the
-step and has no ``state_dtype``.  On one card there is nothing to shard,
-so the reference's ``opt_state_specs`` has no counterpart.
+step and has no ``state_dtype``.  :func:`opt_state_specs` gives the
+reference's partition specs of the state (one card shards nothing).
 
 The port stores in place (the parameters and the moments), which keeps
 one copy of the state alive instead of the reference's two; the values
@@ -20,7 +20,7 @@ from typing import Mapping
 
 import torch
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "opt_state_specs"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -73,3 +73,14 @@ def adamw_update(grads: Mapping[str, torch.Tensor], state: dict,
         m.copy_(m32)
         v.copy_(v32)
     return params, {"mu": state["mu"], "nu": state["nu"], "count": count}
+
+
+def opt_state_specs(param_specs) -> dict:
+    """The state's partition specs from the parameters' (each moment is
+    sharded as its parameter; the count is replicated)."""
+    from ..models.sharding import P
+    return {
+        "mu": param_specs,
+        "nu": param_specs,
+        "count": P(),
+    }

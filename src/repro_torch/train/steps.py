@@ -6,8 +6,10 @@ The reference scans over the accumulation axis under ``jit``; the port
 loops, takes each microbatch's gradients with ``torch.autograd.grad``,
 casts them to ``grad_dtype`` (float32 by default) and adds them there —
 never into the bfloat16 ``.grad`` of the parameters.  PyTorch runs
-eagerly, so there is nothing to compile; one card has no mesh, so the
-reference's ``rules`` (sharding constraints) have no counterpart.
+eagerly, so there is nothing to compile.  ``rules`` (the reference's
+sharding constraints) is taken as a keyword, after the configurations,
+so that the port's callers keep their positional order; one card has
+nothing to shard, and the steps pass it on to nothing.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from dataclasses import dataclass
 import torch
 
 from ..convert import reference_leaves
-from ..models import ModelConfig, decode_step, lm_loss
+from ..models import ModelConfig, Rules, decode_step, lm_loss
 from ..models.transformer import Transformer
 from ..optim import (AdamWConfig, adamw_update, clip_by_global_norm,
                      cosine_warmup)
@@ -107,7 +109,7 @@ def apply_update(params: Transformer, opt_state: dict, step: int,
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
-                    step_cfg: StepConfig):
+                    step_cfg: StepConfig, *, rules: Rules | None = None):
     """Returns ``train_step(params, opt_state, step, batch) ->
     (params, opt_state, metrics)``: :func:`grads_of`, then
     :func:`apply_update`.
@@ -132,7 +134,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     return train_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, *, rules: Rules | None = None):
     """Returns ``serve_step(params, token, pos, cache) ->
     (next_token, cache)`` — one greedy decode step."""
 

@@ -14,7 +14,9 @@ package restores in the other.
 init from ``seed``; a caller may replace it before :meth:`Trainer.run`
 with any model of the same config, such as the reference's weights
 through :func:`repro_torch.convert.params_from_jax` — the optimizer
-state is keyed by parameter name.
+state is keyed by parameter name.  ``rules`` is a keyword here (the
+reference takes it third, where the port takes ``device``); one card
+shards nothing.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 from ..checkpoint import CheckpointManager
 from ..convert import named_from_tree, tree_from_named
 from ..data import SyntheticLM
-from ..models import ModelConfig, init_params
+from ..models import ModelConfig, Rules, init_params
 from ..models.transformer import resolve_device
 from ..optim import AdamWConfig, adamw_init
 from .compression import init_error_feedback
@@ -53,7 +55,8 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
-                 device: str | torch.device = "cuda") -> None:
+                 device: str | torch.device = "cuda", *,
+                 rules: Rules | None = None) -> None:
         if tcfg.seq_len <= cfg.frontend_len:
             # SyntheticLM makes seq_len − frontend_len tokens a row: none
             # leaves every label masked, fewer than none kills its thread
@@ -77,7 +80,8 @@ class Trainer:
         self.straggler = StragglerMonitor()
         self.ckpt = CheckpointManager(tcfg.checkpoint_dir) \
             if tcfg.checkpoint_dir else None
-        self._step = make_train_step(cfg, tcfg.opt, self.step_cfg)
+        self._step = make_train_step(cfg, tcfg.opt, self.step_cfg,
+                                     rules=rules)
         self.data = SyntheticLM(
             vocab=cfg.vocab, seq_len=tcfg.seq_len,
             global_batch=tcfg.global_batch, accum=tcfg.step.accum,

@@ -1,8 +1,9 @@
 """The port's framework-free modules are copies of the reference's: each
 file is byte-identical to its counterpart under ``src/repro`` (the
-reference uses relative imports only, and ``repro_torch.analysis`` stands
-in for the annotations), and each copied package exports the
-reference's names, plus the port's own extras."""
+reference uses relative imports only, and the annotated modules import
+their decorators from the port's own copy of ``analysis/``), and each
+copied package exports the reference's names, plus the port's own
+extras."""
 
 import importlib
 from pathlib import Path
@@ -37,11 +38,15 @@ COPIES = [
     # data and training
     "data/__init__.py", "data/synthetic.py", "train/straggler.py",
     "train/elastic.py",
+    # the concurrency and determinism analyzer, and the lock witness
+    "analysis/__init__.py", "analysis/__main__.py",
+    "analysis/annotations.py", "analysis/determinism.py",
+    "analysis/lockcheck.py", "analysis/report.py", "analysis/witness.py",
 ]
 
 #: the framework-free packages (``configs/`` holds copies too, of values)
 PACKAGES = ["core", "runtime", "workloads", "trace", "serving", "data",
-            "train"]
+            "train", "analysis"]
 
 #: names a package of the port exports beyond the reference's ``__all__``
 EXTRAS = {"train": {"grads_of", "apply_update"}}

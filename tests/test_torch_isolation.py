@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports ``jax``, ``ml_dtypes`` or the reference package
 ``repro`` (the machine with the card has none of them), and the kernel
-dispatch has no path from a CUDA tensor to the plain version."""
+dispatch has no path from a CUDA or a meta tensor to the plain
+version."""
 
 import ast
 from pathlib import Path
@@ -64,9 +65,9 @@ def test_scanner_catches_forbidden_imports(tmp_path):
 
 
 def test_cuda_dispatch_has_no_fallback():
-    """``ops.attention``, ``ops.wkv`` and ``ops.rglru`` send every
-    non-CPU tensor to the kernel wrapper, which raises for what it cannot
-    launch; no ``try`` wraps the launch or the build."""
+    """``ops.attention``, ``ops.wkv`` and ``ops.rglru`` send every CUDA
+    tensor to the kernel wrapper, which raises for what it cannot launch;
+    no ``try`` wraps the launch or the build."""
     ops = (PORT / "kernels" / "ops.py").read_text()
     for name in ("ops", "flash_attention", "rglru", "wkv6", "_build"):
         tree = ast.parse((PORT / "kernels" / f"{name}.py").read_text())
@@ -78,15 +79,79 @@ def test_cuda_dispatch_has_no_fallback():
         assert "impl" not in [a.arg for a in args]
 
 
-def test_non_cpu_tensors_go_to_the_kernel():
+#: each operator's CUDA implementation in ``kernels/ops.py`` and the
+#: kernel wrapper it must call
+CUDA_IMPLS = {"_attention_cuda": ("_fa", "flash_attention"),
+              "_rglru_cuda": ("_rglru", "rglru_scan"),
+              "_wkv_cuda": ("_wkv6", "wkv6")}
+
+
+@pytest.mark.parametrize("impl", sorted(CUDA_IMPLS))
+def test_cuda_implementation_calls_the_kernel(impl):
+    """Each operator's CUDA implementation is one call of its kernel
+    wrapper: no ``try``, no branch, no name from ``ref``."""
+    tree = ast.parse((PORT / "kernels" / "ops.py").read_text())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == impl)
+    nodes = list(ast.walk(fn))
+    assert not any(isinstance(n, (ast.Try, ast.If, ast.IfExp))
+                   for n in nodes)
+    names = {n.id for n in nodes if isinstance(n, ast.Name)}
+    assert "ref" not in names
+    calls = [n.func for n in nodes if isinstance(n, ast.Call)]
+    mod, wrapper = CUDA_IMPLS[impl]
+    assert len(calls) == 1 and isinstance(calls[0], ast.Attribute)
+    assert (calls[0].value.id, calls[0].attr) == (mod, wrapper)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "rglru_scan", "wkv6"])
+def test_operator_registers_the_cuda_implementation(name):
+    """The CUDA kernel registered for ``repro_torch::<name>`` is the
+    function the AST test above reads."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    op = getattr(torch.ops.repro_torch, name).default
+    assert torch._C._dispatch_has_kernel_for_dispatch_key(op.name(), "CUDA")
+    assert torch._C._dispatch_has_kernel_for_dispatch_key(op.name(), "CPU")
+    impl = {"flash_attention": ops._attention_cuda,
+            "rglru_scan": ops._rglru_cuda, "wkv6": ops._wkv_cuda}[name]
+    assert impl.__name__ in CUDA_IMPLS
+
+
+def test_non_cpu_tensors_go_to_the_kernel(monkeypatch):
+    """A meta tensor reaches neither the kernel nor the plain version:
+    each operator's fake gives outputs of the right shapes, the launch
+    counters stay where they were, and no function of ``ref`` is
+    called, forward or backward."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rglru as k2
+    from repro_torch.kernels import wkv6 as k3
 
-    q = torch.empty(1, 16, 4, 64, device="meta")
-    k = torch.empty(1, 16, 2, 64, device="meta")
-    before = fa.launches
-    with pytest.raises(ValueError, match="CUDA device"):
-        ops.attention(q, k, k)
-    assert fa.launches == before
+    called = []
+    for fn in ref.__all__:
+        monkeypatch.setattr(ref, fn, lambda *a, fn=fn, **k: called.append(fn))
+    before = (fa.launches, k2.launches, k3.launches)
+
+    def meta(*shape):
+        return torch.empty(shape, device="meta", requires_grad=True)
+
+    q, k = meta(1, 16, 4, 64), meta(1, 16, 2, 64)
+    o = ops.attention(q, k, k, window=8)
+    assert o.shape == q.shape and o.device.type == "meta"
+    a = meta(2, 16, 8)
+    h, last = ops.rglru(a, a)
+    assert (h.shape, last.shape) == ((2, 16, 8), (2, 8))
+    assert h.dtype == last.dtype == torch.float32
+    r = meta(1, 2, 16, 64)
+    y, s = ops.wkv(r, r, r, r, meta(2, 64))
+    assert (y.shape, s.shape) == ((1, 2, 16, 64), (1, 2, 64, 64))
+    loss = o.sum() + h.sum() + last.sum() + y.sum() + s.sum()
+    grads = torch.autograd.grad(loss, [q, k, a, r])
+    assert [g.shape for g in grads] == [q.shape, k.shape, a.shape, r.shape]
+    assert (fa.launches, k2.launches, k3.launches) == before
+    assert called == []

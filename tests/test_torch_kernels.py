@@ -6,9 +6,10 @@ tolerances.  The CUDA kernels themselves (K1 flash attention, K2 the
 RG-LRU scan, K3 the RWKV-6 WKV) are held against their plain versions in
 the ``gpu``-marked tests, which need a card; K1's bf16 kernel (the
 tensor cores) also at the S values around its tiles.  Gradients: each
-kernel's forward with its plain version's backward
-(``ops._KernelWithPlainGrad``) against plain autograd, on the CPU with a
-stand-in kernel and on the card with the real one.  JAX is imported
+kernel operator's backward (``kernels/ops.py``: the plain version
+recomputed) against plain autograd, on the CPU, where the operator's
+forward is the plain version run below autograd, and on the card with
+the real kernel.  JAX is imported
 inside the CPU tests only: the machine with the card has none."""
 
 import numpy as np
@@ -193,8 +194,8 @@ def test_cpu_wkv_launches_no_kernel():
 def test_wkv_wrapper_refuses_what_it_cannot_launch():
     """K3's wrapper raises, launching nothing, on CPU tensors, on a
     layout the kernel does not take, on other dtypes and shapes, and on a
-    chunk past its shared-memory tiles; ``ops.wkv`` sends a non-CPU
-    tensor to it."""
+    chunk past its shared-memory tiles (on a meta tensor too, where
+    ``ops.wkv`` gives its fake's shapes and launches nothing)."""
     r, k, v, w, u, s0 = (torch.from_numpy(a) for a in
                          _wkv_inputs(1, 2, 20, with_s0=True))
     before = k3.launches
@@ -217,8 +218,12 @@ def test_wkv_wrapper_refuses_what_it_cannot_launch():
             k3.wkv6(kw.pop("r"), kw.pop("k"), kw.pop("v"), kw.pop("w"),
                     kw.pop("u"), kw.pop("s0"), **kw)
     meta = torch.empty(1, 2, 8, 64, device="meta")
+    u_meta = torch.empty(2, 64, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
-        ops.wkv(meta, meta, meta, meta, torch.empty(2, 64, device="meta"))
+        k3.wkv6(meta, meta, meta, meta, u_meta)     # the kernel: the card
+    # the operator on meta: its fake's shapes, no kernel, no plain version
+    y, s_final = ops.wkv(meta, meta, meta, meta, u_meta)
+    assert (y.shape, s_final.shape) == ((1, 2, 8, 64), (1, 2, 64, 64))
     assert k3.launches == before
 
 
@@ -543,15 +548,6 @@ def test_wkv_kernel_runs_on_the_tensor_cores_in_clusters(cuda):
 # -- gradients through the kernels' dispatch ---------------------------------------
 
 
-def _no_grad_kernel(fn):
-    """A stand-in for a CUDA kernel on the CPU: the plain version with no
-    graph, as the ctypes kernels write into fresh tensors."""
-    def kernel(*xs):
-        with torch.no_grad():
-            return fn(*xs)
-    return kernel
-
-
 def _grads_of(outs, inputs, seed=0):
     """Gradients of a random linear functional of ``outs`` (coefficients
     drawn on their device from ``seed``) with respect to ``inputs``."""
@@ -565,10 +561,11 @@ def _grads_of(outs, inputs, seed=0):
 
 @pytest.mark.parametrize("op", ["attention", "rglru", "wkv"])
 def test_kernel_function_takes_the_plain_gradient(op):
-    """``ops._KernelWithPlainGrad``: the output of a kernel that builds no
-    graph is attached to autograd, and its gradients are those of the
-    plain version, input by input (None inputs and an output that no
-    input reaches included)."""
+    """Each kernel operator's autograd formula: its output, computed
+    below autograd (on the CPU by the plain version, as the card's
+    kernel writes fresh tensors), is attached to autograd, and its
+    gradients are those of the plain version, input by input (None
+    inputs and an output that no input reaches included)."""
     rng = np.random.default_rng(3)
 
     def t(*shape, f=lambda x: x):
@@ -577,20 +574,22 @@ def test_kernel_function_takes_the_plain_gradient(op):
     if op == "attention":
         def plain(q, k, v):
             return ref.attention_ref(q, k, v, window=5, softcap=20.0)
+
+        def kernel(q, k, v):
+            return ops.attention(q, k, v, window=5, softcap=20.0)
         inputs = [t(2, 9, 4, 8), t(2, 9, 2, 8), t(2, 9, 2, 8)]
     elif op == "rglru":
-        plain = ops._rglru_plain
+        plain, kernel = ops._rglru_plain, ops.rglru
         inputs = [t(2, 7, 3, f=lambda x: 1 / (1 + np.exp(-x))), t(2, 7, 3),
                   t(2, 3)]
     else:
-        plain = ref.wkv6_ref
+        plain, kernel = ref.wkv6_ref, ops.wkv
         inputs = [t(1, 2, 5, 64) for _ in range(3)] \
             + [t(1, 2, 5, 64, f=lambda x: np.exp(-np.exp(x - 1))),
                t(2, 64), None]
-    outs = ops._KernelWithPlainGrad.apply(_no_grad_kernel(plain), plain,
-                                          *inputs)
+    outs = kernel(*inputs)
     first = outs[0] if isinstance(outs, tuple) else outs
-    assert first.requires_grad
+    assert first.requires_grad and first.grad_fn is not None
     wrt = [x for x in inputs if x is not None]
     got = _grads_of(outs, wrt)
     want = _grads_of(plain(*inputs), wrt)
@@ -599,8 +598,7 @@ def test_kernel_function_takes_the_plain_gradient(op):
     if op == "wkv":         # u alone: the final state does not depend on it
         u_only = [x.detach() if x is not None else None for x in inputs]
         u_only[4].requires_grad_(True)
-        outs = ops._KernelWithPlainGrad.apply(_no_grad_kernel(plain), plain,
-                                              *u_only)
+        outs = kernel(*u_only)
         torch.testing.assert_close(_grads_of(outs, [u_only[4]])[0],
                                    _grads_of(plain(*u_only), [u_only[4]])[0],
                                    rtol=0, atol=0)

@@ -154,7 +154,11 @@ def test_scan_wrapper_refuses_what_it_cannot_launch():
     meta = torch.empty(1, 8, 64, device="meta")
     before = k2.launches
     with pytest.raises(ValueError, match="CUDA device"):
-        ops.rglru(meta, meta)               # not the CPU: to the kernel
+        k2.rglru_scan(meta, meta)           # the kernel runs on the card
+    # the operator on meta: its fake's shapes, no kernel, no plain version
+    h, last = ops.rglru(meta, meta)
+    assert (h.shape, last.shape) == ((1, 8, 64), (1, 64))
+    assert h.device.type == "meta"
     assert k2.launches == before
 
 

@@ -150,14 +150,6 @@ def test_fully_masked_labels_give_zero_loss(weights):
     assert loss.item() == 0.0
 
 
-def test_lm_loss_refuses_what_is_not_ported(weights):
-    cfg, _ = _cfgs()
-    model = params_from_jax(weights[1], cfg, device="cpu")
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="remat 'dots'"):
-        lm_loss(model, toks, toks, cfg.replace(remat="dots"))
-
-
 # -- the train step ----------------------------------------------------------------
 
 
