@@ -72,12 +72,16 @@ and no result line is printed):
    one (K1 on the tensor cores) must give logits within 2e-2 of the
    logits' scale of the CPU's;
 7. gradients through the kernels — each kernel's gradient on the card
-   (its forward, with the plain version's backward: ``kernels/ops.py``)
-   against the fully plain autograd gradient on the card, for a random
-   linear functional of the outputs: K1 at D=64, 128 and 256, with a
-   window and a softcap, in float32 (1e-5) and bfloat16 (2e-2 of the
-   gradient's scale); K2 (1e-5) and K3 (1e-4) at S = 1, 17 and 65 with
-   and without h0 / s0; each kernel must have launched in its forward;
+   (its forward, with the backward of ``kernels/grad.py``: the
+   reference's chunked attention, associative scan and chunked WKV)
+   against the plain version's autograd gradient on the card, for a
+   random linear functional of the outputs: K1 at S=40, D=64, 128 and
+   256, with a window and a softcap, in float32 (1e-5) and bfloat16
+   (2e-2 of the gradient's scale), and at S=2048 (four query chunks),
+   D=64 in float32; K2 (1e-5) and K3 (1e-4; w's gradient as ∂/∂w
+   where w ≥ 0.05 and as w ⊙ ∂/∂w below, where the chunked form's
+   log w divides its rounding by w) at S = 1, 17, 65 and 2048 with and
+   without h0 / s0; each kernel must have launched in its forward;
 8. one train step of a small llama3.2-1b (d_model 256, head_dim 64, so
    that K1 runs; remat "full") on the card and on the CPU from the same
    weights: in float32, loss and grad norm within 1e-5 / 1e-4 and the
@@ -90,7 +94,8 @@ and no result line is printed):
    tokens, accum 1, warmup 2, 6 steps; every loss and grad norm finite,
    the mean of the last two losses below the first two, and K1 launched
    exactly 32 times a step (16 layers, forward and the remat recompute;
-   the backward recomputes the plain version).  Prints ms a step
+   the backward differentiates the reference's query-chunked attention,
+   ``kernels/grad.py``, and launches none).  Prints ms a step
    (synchronised), tokens/s, model TFLOP/s (6·N·B·S) and peak memory;
 10. serve gemma2-9b at full width and depth (42 layers, alternating
     local/global attention, softcaps, 9.24 B parameters) as phase 4; K1
@@ -169,7 +174,9 @@ and no result line is printed):
     weights and batch under ``remat`` "none", "full" and "dots"
     (``repro_torch.launch.cells.build_cell`` on the card): equal first
     losses, grad norms within 1e-5 relative, K1 16, 32 and 32 launches,
-    and peak memory ordered full < dots < none.  Prints each mode's
+    and peak memory ordered full < dots < none, the step's and that of
+    its gradient pass alone (``grads_of``, where remat acts) alike.
+    Prints each mode's
     ``max_memory_allocated`` (less what else the card held), the FLOPs
     ``FlopCounterMode`` counts in a second step, and the ms of a step as
     the median of 3 after it;
@@ -179,9 +186,14 @@ and no result line is printed):
     each); then phase 21's cell on meta under each mode, whose peak must
     lie within ±15 % of phase 21's measured peak and whose FLOPs must
     equal ``FlopCounterMode``'s count of the real step exactly; the
-    plain backwards' working sets on the card (phase 21's attention, a
-    window, a softcap, the scan, the WKV) within ±15 % of the model the
-    dry-run's meta stand-in holds; and the same FLOP equality for a
+    kernel operators' backwards (``kernels/grad.py``) at shapes that span
+    several chunks (phase 21's attention, a window, a softcap, the scan,
+    the WKV in float32 and with bf16 r, k, v; and four shapes the
+    model's card terms were not fit to), each working set on the card
+    within ±15 % of the model the dry-run's meta stand-in holds,
+    and at S=2048 each one's ms and working set beside the plain
+    version's gradient, which the operators took before; and the same
+    FLOP equality for a
     small recurrentgemma-2b prefill (K1, K2) and a small rwkv6-7b
     prefill (K3) run on the card;
 23. the analyzer: ``repro_torch.analysis``'s static passes over the
@@ -189,7 +201,21 @@ and no result line is printed):
     ``ThreadExecutor`` run repeats under the port's strict lock-order
     witness with no violation and no contradiction of the declared
     order (traced, so that the executor's, the scheduler's, the
-    monitor's, the recorder's and the bus's locks nest).
+    monitor's, the recorder's and the bus's locks nest);
+24. the recurrent architectures train on the card: one train step of
+    recurrentgemma-2b at full width and depth (26 layers) and of
+    rwkv6-7b at full width and 8 of its 32 layers (the cut is printed:
+    the full depth's weights, gradients and AdamW state do not fit one
+    card), each through ``build_cell`` as phase 21 (bf16 parameters,
+    float32 AdamW state and gradients, remat "full", ``ce_seq_chunk``
+    512) on a fixed seeded batch of 2 × 2048 tokens, one warm-up step
+    and then 3 timed: every loss and grad norm finite, exactly K2 34 and
+    K1 16 launches a step for recurrentgemma-2b (each forward and its
+    remat recompute, but the two trailing recurrent layers, which are not
+    checkpointed) and K3 16 for rwkv6-7b, and no other, and the peak
+    memory within ±15 % of the dry-run's peak for the same cell on
+    meta.  Prints ms a step (the median of 3), tokens/s, model TFLOP/s
+    (6·N·B·S) and peak memory.
 
 The launch counts of each serving path and of each full-width train run
 are set to 0 just before it and read just after; a kernel that the path
@@ -983,25 +1009,44 @@ def _functional_grads(torch, outs, inputs, seed: int):
     return torch.autograd.grad(loss, inputs)
 
 
+#: K3's decays below which phase 7 holds w's gradient as w ⊙ ∂/∂w
+W_SPLIT = 0.05
+
+
+def _split_w_grad(torch, grads: list, w) -> list:
+    """K3's gradients with w's split in two: ∂/∂w where w ≥ ``W_SPLIT``
+    and w ⊙ ∂/∂w (the gradient with respect to log w) below, each zero
+    elsewhere.  The chunked form takes log w, so ∂/∂w divides its
+    rounding by w, by up to 1e15 at these inputs; at w ≥ 0.05 by at
+    most 20."""
+    big = w >= W_SPLIT
+    dw = grads[3]
+    return grads[:3] + [torch.where(big, dw, 0.0),
+                        torch.where(big, 0.0, dw * w)] + grads[4:]
+
+
 def check_gradients(torch, ops, ref, fa, k2, k3) -> None:
-    """Each kernel's gradient (kernel forward, plain backward) against the
-    fully plain autograd gradient on the card, inputs and outputs alike."""
+    """Each kernel's gradient (kernel forward, the backward of
+    ``kernels/grad.py``) against the plain version's autograd gradient
+    on the card, inputs and outputs alike; K3's w split as
+    :func:`_split_w_grad` does."""
     bf16, f32 = torch.bfloat16, torch.float32
     cases = []      # name, module, dispatch, plain, inputs, tolerance
-    for D, H, KV in ((64, 8, 2), (128, 8, 2), (256, 10, 1)):
-        for dt in (f32, bf16):
-            for window, softcap in ((None, None), (24, None), (None, 20.0)):
-                q, k, v = attention_inputs(torch, 2, 40, H, KV, D, dt,
-                                           seed=D + (window or 0),
-                                           scale=3.0 if softcap else 1.0)
-                cases.append((
-                    f"D={D} window={window} softcap={softcap}", fa,
-                    lambda *x, w=window, c=softcap: ops.attention(
-                        *x, window=w, softcap=c),
-                    lambda *x, w=window, c=softcap: ref.attention_ref(
-                        *x, window=w, softcap=c),
-                    [q, k, v], TOL["float32"] / 2 if dt == f32 else None))
-    for S in (1, 17, 65):
+    shapes = [(2, 40, D, H, KV, dt) for D, H, KV in
+              ((64, 8, 2), (128, 8, 2), (256, 10, 1)) for dt in (f32, bf16)]
+    for B, S, D, H, KV, dt in shapes + [(1, 2048, 64, 8, 2, f32)]:
+        for window, softcap in ((None, None), (24, None), (None, 20.0)):
+            q, k, v = attention_inputs(torch, B, S, H, KV, D, dt,
+                                       seed=D + (window or 0),
+                                       scale=3.0 if softcap else 1.0)
+            cases.append((
+                f"S={S} D={D} window={window} softcap={softcap}", fa,
+                lambda *x, w=window, c=softcap: ops.attention(
+                    *x, window=w, softcap=c),
+                lambda *x, w=window, c=softcap: ref.attention_ref(
+                    *x, window=w, softcap=c),
+                [q, k, v], TOL["float32"] / 2 if dt == f32 else None))
+    for S in (1, 17, 65, 2048):
         for with_state in (False, True):
             a, b, h0 = scan_inputs(torch, 2, S, 256, seed=S)
             cases.append((f"S={S}" + (" h0" if with_state else ""), k2,
@@ -1019,10 +1064,12 @@ def check_gradients(torch, ops, ref, fa, k2, k3) -> None:
                   for x in inputs]
         wrt = [x for x in inputs if x is not None]
         before = mod.launches
-        got = _functional_grads(torch, dispatch(*inputs), wrt, i)
+        got = list(_functional_grads(torch, dispatch(*inputs), wrt, i))
         launched = mod.launches - before
-        want = _functional_grads(torch, plain(*inputs), wrt, i)
+        want = list(_functional_grads(torch, plain(*inputs), wrt, i))
         torch.cuda.synchronize()
+        if tag == "K3":
+            got, want = (_split_w_grad(torch, x, wrt[3]) for x in (got, want))
         errs, ok = [], launched == 1
         for gg, ww in zip(got, want):
             gg, ww = gg.float(), ww.float()
@@ -1032,7 +1079,7 @@ def check_gradients(torch, ops, ref, fa, k2, k3) -> None:
             ok &= bool(torch.isfinite(gg).all()) and torch.allclose(
                 gg, ww, rtol=tol or 0.0, atol=t)
         dt = str(inputs[0].dtype).removeprefix("torch.")
-        print(f"[grad] {tag} {name:32s} {dt:8s} launches {launched}, "
+        print(f"[grad] {tag} {name:40s} {dt:8s} launches {launched}, "
               f"max|Δgrad| {max(errs):.3e} over {len(wrt)} inputs "
               f"({'ok' if ok else 'FAIL'})")
         if not ok:
@@ -1717,6 +1764,8 @@ def remat_on_card(torch, kernels: dict, card: str, tag: str
     counts, read just after it."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    from repro_torch.train.steps import StepConfig, grads_of
+
     fa = kernels["flash_attention"]
     for mod in kernels.values():
         mod.launches = 0
@@ -1736,6 +1785,12 @@ def remat_on_card(torch, kernels: dict, card: str, tag: str
         loss, gnorm = float(m["loss"]), float(m["grad_norm"])
         k1 = fa.launches - before
         peak = torch.cuda.max_memory_allocated() - others
+        # the gradient pass alone, where remat acts
+        torch.cuda.reset_peak_memory_stats()
+        grads = grads_of(cell.args[0], cell.cfg, cell.args[3],
+                         StepConfig(accum=1, grad_dtype="float32"))[1]
+        grad_peak = torch.cuda.max_memory_allocated() - others
+        del grads
         with FlopCounterMode(display=False) as counter:
             cell.fn(*cell.args)
         torch.cuda.synchronize()
@@ -1747,12 +1802,14 @@ def remat_on_card(torch, kernels: dict, card: str, tag: str
             ms.append((time.perf_counter() - t0) * 1e3)
         n_layers = cell.cfg.n_layers
         out[remat] = {"loss": loss, "grad_norm": gnorm, "k1": k1,
-                      "peak": peak, "args": args, "others": others,
+                      "peak": peak, "grad_peak": grad_peak, "args": args,
+                      "others": others,
                       "flops": counter.get_total_flops(),
                       "ms": sorted(ms)[1], "ms_all": ms}
         print(f"[{tag}] remat {remat:4s}: first loss {loss!r}, grad norm "
               f"{gnorm!r}, K1 {k1} launches; peak memory "
-              f"{peak / 2**30:.3f} GiB ({peak} B; arguments "
+              f"{peak / 2**30:.3f} GiB ({peak} B), of the gradient pass "
+              f"{grad_peak / 2**30:.3f} GiB ({grad_peak} B; arguments "
               f"{args / 2**30:.3f} GiB, {others} B else on the card); "
               f"FlopCounterMode {out[remat]['flops']:.6e} FLOPs a step; "
               f"ms a step {out[remat]['ms']:.3f} (median of "
@@ -1769,9 +1826,14 @@ def remat_on_card(torch, kernels: dict, card: str, tag: str
     check({r: o["k1"] for r, o in out.items()} == want,
           f"{tag}: K1 launches {[o['k1'] for o in out.values()]}, want "
           f"{want}")
+    grad_peaks = [o["grad_peak"] for o in out.values()]
+    check(out["full"]["grad_peak"] < out["dots"]["grad_peak"]
+          < out["none"]["grad_peak"],
+          f"{tag}: the gradient passes' peaks {grad_peaks} are not ordered "
+          "full < dots < none")
     check(out["full"]["peak"] < out["dots"]["peak"] < out["none"]["peak"],
-          f"{tag}: peaks {[o['peak'] for o in out.values()]} are not "
-          "ordered full < dots < none")
+          f"{tag}: the steps' peaks {[o['peak'] for o in out.values()]} "
+          "are not ordered full < dots < none")
     check(launches["rglru_scan"] == launches["wkv6"] == 0,
           f"{tag}: launches {launches}")
     free_card(torch)
@@ -1843,7 +1905,7 @@ def dryrun_against_card(torch, kernels: dict, remat: dict, card: str,
               f"{tag}: {mode}'s arguments differ")
     check({name: mod.launches for name, mod in kernels.items()} == before,
           f"{tag}: a meta run launched a kernel")
-    plain_backward_on_card(torch, card, tag)
+    backward_on_card(torch, card, tag)
 
     for mod in kernels.values():
         mod.launches = 0
@@ -1877,75 +1939,125 @@ def dryrun_against_card(torch, kernels: dict, remat: dict, card: str,
     return launches
 
 
-#: the plain backwards whose working set phase 22 measures: phase 21's
-#: attention (bf16), one with a window and one with a softcap, the scan
-#: and the WKV
-PLAIN_BACKWARDS = (
-    ("flash_attention", (4, 2048, 32, 8, 64), "bfloat16", None, None),
-    ("flash_attention", (1, 1024, 10, 1, 256), "bfloat16", 64, None),
-    ("flash_attention", (2, 512, 16, 8, 128), "float32", None, 30.0),
-    ("rglru_scan", (1, 512, 2560), "float32", None, None),
-    ("wkv6", (1, 8, 128), "float32", None, None),
+#: the backwards whose working set phase 22 measures, at shapes that span
+#: several chunks: phase 21's attention (bf16, four query chunks), one
+#: with a window and one with a softcap, the scan at recurrentgemma-2b's
+#: width, and the WKV at rwkv6-7b's 64 heads (float32, and r, k, v in
+#: bf16 as the model passes them) — the shapes the card's terms of
+#: ``ops.grad_workspace`` were fit to; then shapes they were not fit to:
+#: attention at G = 3, D = 128, a window of 300 and a ragged S, and at
+#: G = 1 in float32 with a softcap; the scan at an odd S; the WKV at
+#: chunk 32 with a ragged S; (op, dims, dtype, options)
+BACKWARDS = (
+    ("flash_attention", (4, 2048, 32, 8, 64), "bfloat16", (None, None)),
+    ("flash_attention", (1, 2048, 10, 1, 256), "bfloat16", (64, None)),
+    ("flash_attention", (2, 1536, 16, 8, 128), "float32", (None, 30.0)),
+    ("rglru_scan", (1, 2048, 2560), "float32", ()),
+    ("wkv6", (1, 64, 2048), "float32", (16,)),
+    ("wkv6", (1, 64, 2048), "bfloat16", (16,)),
+    ("flash_attention", (2, 1100, 12, 4, 128), "bfloat16", (300, None)),
+    ("flash_attention", (1, 2600, 8, 8, 64), "float32", (None, 50.0)),
+    ("rglru_scan", (3, 777, 1024), "float32", ()),
+    ("wkv6", (2, 32, 700), "bfloat16", (32,)),
 )
+#: the first of ``BACKWARDS`` that the model was not fit to
+HELD_OUT = 6
 #: phase 22's bound on the working-set model against the card
 WORKSPACE_RTOL = 0.15
+#: the backwards phase 22 also times against the plain version's
+#: gradient at S=2048: the first of each operator in ``BACKWARDS``
+TIMED_BACKWARDS = (0, 3, 4)
 
 
-def plain_backward_on_card(torch, card: str, tag: str) -> None:
-    """Each plain backward's working set on the card (its peak beyond its
-    inputs, output gradients and input gradients, from
-    ``max_memory_allocated``) against
-    ``ops.plain_grad_workspace(..., device="cuda")``, which the dry-run's
-    meta stand-in holds."""
+def _backward_inputs(torch, name, dims, dtype):
+    """Seeded inputs and output gradients of an operator's backward, and
+    its plain version."""
     from repro_torch.kernels import ops, ref
 
-    for name, dims, dtype, window, softcap in PLAIN_BACKWARDS:
-        dt = getattr(torch, dtype)
-        g = torch.Generator(device="cuda").manual_seed(0)
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(0)
 
-        def randn(*shape, f=None):
-            x = torch.randn(shape, generator=g, device="cuda")
-            return (x if f is None else f(x)).to(dt)
-        if name == "flash_attention":
-            B, S, H, KV, D = dims
-            inputs = (randn(B, S, H, D), randn(B, S, KV, D),
-                      randn(B, S, KV, D))
-            grads = (randn(B, S, H, D),)
-            options = (window, softcap)
+    def randn(*shape, f=None, to=dt):
+        x = torch.randn(shape, generator=g, device="cuda")
+        return (x if f is None else f(x)).to(to)
+    if name == "flash_attention":
+        B, S, H, KV, D = dims
+        return ((randn(B, S, H, D), randn(B, S, KV, D), randn(B, S, KV, D)),
+                (randn(B, S, H, D),),
+                lambda q, k, v, window, softcap: ref.attention_ref(
+                    q, k, v, window=window, softcap=softcap))
+    if name == "rglru_scan":
+        B, S, R = dims
+        return ((randn(B, S, R, f=torch.sigmoid), randn(B, S, R), None),
+                (randn(B, S, R), randn(B, R)), ops._rglru_plain)
+    B, H, S = dims
+    f32 = torch.float32
+    return (tuple(randn(B, H, S, 64) for _ in range(3))
+            + (randn(B, H, S, 64, f=lambda x: torch.exp(-torch.exp(x - 1)),
+                     to=f32), randn(H, 64, to=f32), None),
+            (randn(B, H, S, 64, to=f32), randn(B, H, 64, 64, to=f32)),
+            lambda r, k, v, w, u, s0, chunk: ref.wkv6_ref(r, k, v, w, u,
+                                                          s0))
 
-            def plain(q, k, v):
-                return ref.attention_ref(q, k, v, window=window,
-                                         softcap=softcap)
-        elif name == "rglru_scan":
-            B, S, R = dims
-            inputs = (randn(B, S, R, f=torch.sigmoid), randn(B, S, R), None)
-            grads = (randn(B, S, R), randn(B, R))
-            options, plain = (), ops._rglru_plain
-        else:
-            B, H, S = dims
-            inputs = tuple(randn(B, H, S, 64) for _ in range(3)) \
-                + (randn(B, H, S, 64, f=torch.sigmoid), randn(H, 64), None)
-            grads = (randn(B, H, S, 64), randn(B, H, 64, 64))
-            options, plain = (), ref.wkv6_ref
+
+def _held_and_ms(torch, fn, runs: int) -> tuple[int, float, list]:
+    """``fn()``'s working set on the card (its peak beyond what it was
+    given, less what it returns, from ``max_memory_allocated``) on its
+    first call, and the median ms of ``runs`` calls after it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = fn()
+    torch.cuda.synchronize()
+    held = torch.cuda.max_memory_allocated() - base \
+        - _nbytes(x for x in got if x is not None)
+    del got
+    ms = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        got = ops._plain_grads(plain, inputs, grads)
-        torch.cuda.synchronize()
-        held = torch.cuda.max_memory_allocated() - base \
-            - _nbytes(x for x in got if x is not None)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return held, sorted(ms)[len(ms) // 2], ms
+
+
+def backward_on_card(torch, card: str, tag: str) -> None:
+    """Each kernel operator's backward (``ops.backward``) at
+    chunk-spanning shapes, those the model's card terms were fit to and
+    four it was not: its working set on the card against
+    ``ops.grad_workspace(..., device="cuda")``, which the dry-run's meta
+    stand-in holds (±15 %); at S=2048 also its ms against the plain
+    version's gradient (``ops._grads_of`` on ``ref``), which the
+    operators took before, with that one's working set."""
+    from repro_torch.kernels import ops
+
+    for i, (name, dims, dtype, options) in enumerate(BACKWARDS):
+        inputs, grads, plain = _backward_inputs(torch, name, dims, dtype)
         shapes = [None if x is None else x.shape for x in inputs]
-        model = ops.plain_grad_workspace(name, shapes, dt, options, "cuda")
+        held, ms, all_ms = _held_and_ms(
+            torch, lambda: ops.backward(name, inputs, grads, options), 3)
+        model = ops.grad_workspace(name, shapes, inputs[0].dtype, options,
+                                   "cuda")
         err = model / held - 1.0
-        print(f"[{tag}] plain {name} backward {dims} {dtype}"
-              + (f" window {window}" if window else "")
-              + (f" softcap {softcap:g}" if softcap else "")
-              + f": working set {held} B on the card, {model} B modelled "
-              f"({err * 100:+.2f} %) [{card}]")
+        fit = "held out" if i >= HELD_OUT else "fit"
+        print(f"[{tag}] {name} backward {dims} {dtype} options {options} "
+              f"({fit}): working set {held} B on the card, {model} B "
+              f"modelled ({err * 100:+.2f} %); {ms:.3f} ms (median of "
+              f"{[round(x, 3) for x in all_ms]}) [{card}]")
         check(abs(err) <= WORKSPACE_RTOL,
-              f"{tag}: the plain {name} backward's working set is "
+              f"{tag}: the {name} backward's working set is "
               f"{err * 100:+.2f} % off its model")
-        del inputs, grads, got
+        if i in TIMED_BACKWARDS:
+            old_held, old_ms, old_all = _held_and_ms(
+                torch, lambda: ops._grads_of(
+                    lambda *xs: plain(*xs, *options), inputs, grads), 2)
+            print(f"[{tag}] {name} backward {dims} {dtype} at S=2048: "
+                  f"plain version's gradient {old_ms:.3f} ms (median of "
+                  f"{[round(x, 3) for x in old_all]}), working set "
+                  f"{old_held} B; the reference's formula {ms:.3f} ms, "
+                  f"{held} B; {old_ms / ms:.2f}× the time, "
+                  f"{old_held / held:.2f}× the memory [{card}]")
+        del inputs, grads
 
 
 def analyzer_on_card(card: str, tag: str) -> None:
@@ -1972,6 +2084,107 @@ def analyzer_on_card(card: str, tag: str) -> None:
           f"[{card}]")
     check(not witness.violations and not problems and witness.observed,
           f"{tag}: {witness.violations} {problems}")
+
+
+# -- 24. the recurrent architectures' train step -----------------------------
+
+#: phase 24's cells: (arch, depth or None for the full one, the kernel
+#: launches a step — each forward and its remat recompute; the two
+#: trailing RG-LRU layers of recurrentgemma-2b's 26, outside its eight
+#: (recurrent, recurrent, attention) units, are not checkpointed, as in
+#: the reference, and run once)
+RECURRENT_TRAIN = (
+    ("recurrentgemma-2b", None,
+     {"flash_attention": 16, "rglru_scan": 34, "wkv6": 0}),
+    ("rwkv6-7b", 8, {"flash_attention": 0, "rglru_scan": 0, "wkv6": 16}),
+)
+#: phase 24's batch (B × S tokens) and the steps timed after its warm-up
+RECURRENT_SHAPE = (2, 2048)
+RECURRENT_STEPS = 3
+
+
+def train_recurrent(torch, kernels: dict, card: str, tag: str) -> dict:
+    """Phase 24: one train step of each recurrent architecture on the
+    card through ``build_cell``, held against the dry-run of the same
+    cell on meta; returns the launch counts, read just after."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch.cells import TrainKnobs, build_cell
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models.transformer import Transformer
+
+    B, S = RECURRENT_SHAPE
+    shape = ShapeSpec(f"train_{B}x{S}", S, B, "train")
+    knobs = TrainKnobs(accum=1, ce_seq_chunk=512)
+    steps = 1 + RECURRENT_STEPS
+    for mod in kernels.values():
+        mod.launches = 0
+    for arch, depth, per_step in RECURRENT_TRAIN:
+        overrides = {"remat": "full"}
+        if depth is not None:
+            full = sum(p.numel() for p in Transformer(
+                get_config(arch), device="meta").parameters())
+            overrides["n_layers"] = depth
+            print(f"[{tag}] {arch}: depth cut to {depth} of "
+                  f"{get_config(arch).n_layers} layers: {full / 1e9:.2f} B "
+                  f"parameters at full depth, whose bf16 weights, float32 "
+                  f"gradients and AdamW state ({full * 14 / 1e9:.1f} GB) do "
+                  "not fit one card")
+        free_card(torch)
+        start = {name: mod.launches for name, mod in kernels.items()}
+        cell = build_cell(arch, shape, overrides, knobs=knobs,
+                          device="cuda")
+        cfg = cell.cfg
+        check(cfg.param_dtype == "bfloat16"
+              and cell.static_notes["accum"] == 1, f"{tag}: {cfg}")
+        args = _nbytes(t for ts in cell.argument_tensors().values()
+                       for t in ts)
+        torch.cuda.synchronize()
+        others = torch.cuda.memory_allocated() - args
+        torch.cuda.reset_peak_memory_stats()
+        m = cell.fn(*cell.args)[2]
+        losses, norms = [float(m["loss"])], [float(m["grad_norm"])]
+        peak = torch.cuda.max_memory_allocated() - others
+        ms = []
+        for _ in range(RECURRENT_STEPS):
+            t0 = time.perf_counter()
+            m = cell.fn(*cell.args)[2]
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        ran = {name: mod.launches - start[name]
+               for name, mod in kernels.items()}
+        step_ms = sorted(ms)[len(ms) // 2]
+        n_params = sum(p.numel() for p in cell.args[0].parameters())
+        flops = 6.0 * n_params * B * S
+        rec = run_cell(arch, shape, cfg_overrides=overrides, knobs=knobs,
+                       save=False, verbose=False)
+        est = rec["memory"]["peak_bytes"]
+        err = est / peak - 1.0
+        print(f"[{tag}] {arch}: {cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, {n_params / 1e9:.3f} B parameters, bf16 "
+              f"weights, float32 gradients and AdamW state "
+              f"({args / 2**30:.3f} GiB of arguments); B={B} S={S}, remat "
+              f"full, ce_seq_chunk 512; losses {losses}, grad norms "
+              f"{norms} (the schedule's first step moves no weight); "
+              f"launches {ran} over {steps} steps; ms a step "
+              f"{step_ms:.3f} (median of {[round(x, 3) for x in ms]}), "
+              f"{B * S / step_ms * 1e3:.1f} tokens/s, "
+              f"{flops / step_ms / 1e9:.2f} model TFLOP/s (6·N·B·S, N "
+              f"{n_params}); peak "
+              f"memory {peak / 2**30:.3f} GiB ({peak} B; {others} B else "
+              f"on the card), {est / 2**30:.3f} GiB on meta "
+              f"({err * 100:+.2f} %) [{card}]")
+        check(all(map(math.isfinite, losses + norms)),
+              f"{tag}: {arch}'s losses {losses} or grad norms {norms}")
+        check(ran == {k: n * steps for k, n in per_step.items()},
+              f"{tag}: {arch} launched {ran}, want {per_step} a step")
+        check(abs(err) <= PEAK_RTOL,
+              f"{tag}: {arch}'s peak estimate is {err * 100:+.2f} % off")
+        del cell, m
+    launches = {name: mod.launches for name, mod in kernels.items()}
+    free_card(torch)
+    return launches
 
 
 def main() -> int:
@@ -2128,6 +2341,7 @@ def main() -> int:
     dryrun_launches = dryrun_against_card(torch, kernels, remat, card,
                                           "dry-run")
     analyzer_on_card(card, "analyzer")
+    recurrent = train_recurrent(torch, kernels, card, "train recurrent")
 
     paths = {"llama3.2-1b": llama, "recurrentgemma-2b": rgemma,
              "rwkv6-7b": rwkv, "train llama3.2-1b": train,
@@ -2142,7 +2356,9 @@ def main() -> int:
              "traced serving llama3.2-1b": traced,
              "remat llama3.2-1b (none, full, dots; 4 × 2048)":
              remat_launches,
-             "dry-run's small prefills on the card": dryrun_launches}
+             "dry-run's small prefills on the card": dryrun_launches,
+             "train recurrentgemma-2b and rwkv6-7b (8 of 32 layers)":
+             recurrent}
 
     def row(name, src, replaces, err, t):
         return {"name": name, "route": "cuda",

@@ -20,7 +20,7 @@ the meta device (where nothing is allocated and nothing is computed:
   not a view — eager PyTorch's unfused traffic, each operator reading
   its inputs from device memory and writing its outputs there; a
   kernel's operator counts its own inputs and outputs, and on meta the
-  plain backward's stand-in counts the traffic of the operators it
+  kernel backwards' stand-in counts the traffic of the operators it
   stands in for;
 * peak live bytes, by following each storage from the operator that
   creates it (or first touches it) until its last reference dies.
@@ -60,11 +60,11 @@ _aten = torch.ops.aten
 _NO_TRAFFIC = {_aten.empty, _aten.empty_strided, _aten.empty_like,
                _aten.new_empty, _aten.new_empty_strided, _aten._unsafe_view,
                _aten.lift_fresh}
-#: the meta stand-ins of the plain backward, which carry its traffic and
-#: its working set on the card and on the CPU as their third to fifth
-#: arguments (:mod:`repro_torch.kernels.ops`)
-_PLAIN_GRADS = {getattr(torch.ops.repro_torch, f"{name}_plain_grad")
-                for name in ("flash_attention", "rglru_scan", "wkv6")}
+#: the meta stand-ins of the kernels' backwards, which carry their traffic
+#: and their working set on the card and on the CPU as their third to
+#: fifth arguments (:mod:`repro_torch.kernels.ops`)
+_GRADS = {getattr(torch.ops.repro_torch, f"{name}_grad")
+          for name in ("flash_attention", "rglru_scan", "wkv6")}
 
 
 def _tensors(tree) -> list[torch.Tensor]:
@@ -161,7 +161,7 @@ class StepMeter(TorchDispatchMode):
     the HBM bytes they move (``hbm_bytes``) and the bytes of the storages
     alive at once (``live``, and its ``peak``).  ``tensors`` are alive
     when it starts (a step's arguments); any other storage an operator
-    touches counts from then on.  A meta stand-in of the plain backward
+    touches counts from then on.  A meta stand-in of a kernel's backward
     adds the working set it carries for ``device`` (``"cuda"``, the
     card, or ``"cpu"``) to the peak, over its outputs."""
 
@@ -210,7 +210,7 @@ class StepMeter(TorchDispatchMode):
         if formula is not None:
             self.flops += formula(*args, **kwargs, out_val=out)
         packet = func._overloadpacket
-        if packet in _PLAIN_GRADS:
+        if packet in _GRADS:
             self.hbm_bytes += args[2]
             held = args[3] if self.device == "cuda" else args[4]
             self.peak = max(self.peak, self.live + held)
@@ -238,7 +238,7 @@ def count_step(fn: Callable, args: tuple,
                tensors: Iterable[torch.Tensor] | None = None,
                device: str = "cuda") -> StepCount:
     """Run ``fn(*args)`` under a :class:`StepMeter` (on meta, over a
-    memo of the operators' outputs) that models ``device``'s plain
+    memo of the operators' outputs) that models ``device``'s kernel
     backward.  ``tensors`` are the step's arguments as tensors (default:
     the tensors in ``args``); they are alive throughout, and their bytes
     open the live count."""

@@ -67,9 +67,12 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   softcap: float | None = None) -> torch.Tensor:
     """Causal grouped-query attention over a full sequence.
 
-    q: (B, S, H, D); k, v: (B, S, K, D) with H = K·G.  The reference
-    chunks long sequences over queries to bound its score temporaries;
-    the flash kernel never materializes scores, so there is one path.
+    q: (B, S, H, D); k, v: (B, S, K, D) with H = K·G.  The forward is
+    the flash kernel, which never materializes scores; the gradient is
+    the reference's: query chunks of 512, each chunk's scores recomputed
+    and differentiated on its own, so that the backward holds one
+    chunk's (B, K, G, 512, span) scores, not (B, H, S, S)
+    (:mod:`repro_torch.kernels.grad`).
     """
     return ops.attention(q, k, v, window=window, softcap=softcap)
 

@@ -6,7 +6,9 @@ reference's math and dtypes."""
 
 from .adamw import AdamWConfig, adamw_init, adamw_update, opt_state_specs
 from .schedules import cosine_warmup
-from .clipping import global_norm, clip_by_global_norm
+from .clipping import (global_norm, clip_by_global_norm,
+                       clip_by_global_norm_)
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "opt_state_specs",
-           "cosine_warmup", "global_norm", "clip_by_global_norm"]
+           "cosine_warmup", "global_norm", "clip_by_global_norm",
+           "clip_by_global_norm_"]

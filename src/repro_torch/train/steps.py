@@ -21,7 +21,7 @@ import torch
 from ..convert import reference_leaves
 from ..models import ModelConfig, Rules, decode_step, lm_loss
 from ..models.transformer import Transformer
-from ..optim import (AdamWConfig, adamw_update, clip_by_global_norm,
+from ..optim import (AdamWConfig, adamw_update, clip_by_global_norm_,
                      cosine_warmup)
 from .compression import compress_grads
 
@@ -85,8 +85,9 @@ def apply_update(params: Transformer, opt_state: dict, step: int,
     """Optional compression, the clip, the schedule and AdamW: updates
     ``params`` in place and returns ``(opt_state, grad_norm, lr_scale)``.
 
-    The leaves of ``grads`` are replaced by the compressed, then the
-    clipped ones, so that one copy of the gradients is alive during AdamW.
+    The leaves of ``grads`` are replaced by the compressed ones, then
+    clipped in place, so that one copy of the gradients is alive through
+    the clip and AdamW.
     """
     named = dict(params.named_parameters())
     ef_new = None
@@ -95,9 +96,7 @@ def apply_update(params: Transformer, opt_state: dict, step: int,
                                      reference_leaves(named, cfg))
         grads.update(new)
         del new
-    new, gnorm = clip_by_global_norm(grads, step_cfg.clip_norm)
-    grads.update(new)
-    del new
+    gnorm = clip_by_global_norm_(grads, step_cfg.clip_norm)
     lr_scale = cosine_warmup(step, warmup=step_cfg.warmup,
                              total=step_cfg.total_steps)
     adam_state = {k: v for k, v in opt_state.items() if k != "ef"}

@@ -6,10 +6,11 @@ tolerances.  The CUDA kernels themselves (K1 flash attention, K2 the
 RG-LRU scan, K3 the RWKV-6 WKV) are held against their plain versions in
 the ``gpu``-marked tests, which need a card; K1's bf16 kernel (the
 tensor cores) also at the S values around its tiles.  Gradients: each
-kernel operator's backward (``kernels/ops.py``: the plain version
-recomputed) against plain autograd, on the CPU, where the operator's
-forward is the plain version run below autograd, and on the card with
-the real kernel.  JAX is imported
+kernel operator's backward (the reference's training formula,
+``kernels/grad.py``) against autograd of that formula on the CPU, where
+the operator's forward is the plain version run below autograd, and
+against the plain version's autograd on the card with the real kernel.
+JAX is imported
 inside the CPU tests only: the machine with the card has none."""
 
 import numpy as np
@@ -17,7 +18,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import grad, ops, ref
 from repro_torch.kernels import rglru as k2
 from repro_torch.kernels import wkv6 as k3
 
@@ -564,26 +565,38 @@ def test_kernel_function_takes_the_plain_gradient(op):
     """Each kernel operator's autograd formula: its output, computed
     below autograd (on the CPU by the plain version, as the card's
     kernel writes fresh tensors), is attached to autograd, and its
-    gradients are those of the plain version, input by input (None
-    inputs and an output that no input reaches included)."""
+    gradients are those of the reference's training formula in
+    ``kernels/grad.py`` (the name is older than that formula), input by
+    input (None inputs and an output that no input reaches included):
+    attention's chunk-by-chunk backward, at a length of three query
+    chunks, the last one short; autograd through the scan and the
+    chunked WKV."""
     rng = np.random.default_rng(3)
 
     def t(*shape, f=lambda x: x):
         return torch.from_numpy(f(rng.standard_normal(shape))
                                 .astype(np.float32)).requires_grad_(True)
     if op == "attention":
-        def plain(q, k, v):
-            return ref.attention_ref(q, k, v, window=5, softcap=20.0)
-
         def kernel(q, k, v):
             return ops.attention(q, k, v, window=5, softcap=20.0)
-        inputs = [t(2, 9, 4, 8), t(2, 9, 2, 8), t(2, 9, 2, 8)]
+        inputs = [t(2, 1100, 4, 8), t(2, 1100, 2, 8), t(2, 1100, 2, 8)]
+        out = kernel(*inputs)
+        assert out.requires_grad and out.grad_fn is not None
+        # _grads_of's functional: its coefficients are the output gradient
+        go = torch.randn(out.shape, generator=torch.Generator()
+                         .manual_seed(0))
+        want = grad.attention_grads(*inputs, go, 5, 20.0)
+        for g, w in zip(_grads_of(out, inputs), want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        return
     elif op == "rglru":
-        plain, kernel = ops._rglru_plain, ops.rglru
+        formula, kernel = grad.associative_scan, ops.rglru
         inputs = [t(2, 7, 3, f=lambda x: 1 / (1 + np.exp(-x))), t(2, 7, 3),
                   t(2, 3)]
     else:
-        plain, kernel = ref.wkv6_ref, ops.wkv
+        def formula(*x):
+            return grad.chunked_wkv(*x, chunk=16)
+        kernel = ops.wkv
         inputs = [t(1, 2, 5, 64) for _ in range(3)] \
             + [t(1, 2, 5, 64, f=lambda x: np.exp(-np.exp(x - 1))),
                t(2, 64), None]
@@ -592,7 +605,7 @@ def test_kernel_function_takes_the_plain_gradient(op):
     assert first.requires_grad and first.grad_fn is not None
     wrt = [x for x in inputs if x is not None]
     got = _grads_of(outs, wrt)
-    want = _grads_of(plain(*inputs), wrt)
+    want = _grads_of(formula(*inputs), wrt)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
     if op == "wkv":         # u alone: the final state does not depend on it
@@ -600,7 +613,8 @@ def test_kernel_function_takes_the_plain_gradient(op):
         u_only[4].requires_grad_(True)
         outs = kernel(*u_only)
         torch.testing.assert_close(_grads_of(outs, [u_only[4]])[0],
-                                   _grads_of(plain(*u_only), [u_only[4]])[0],
+                                   _grads_of(formula(*u_only),
+                                             [u_only[4]])[0],
                                    rtol=0, atol=0)
 
 
@@ -672,5 +686,12 @@ def test_wkv_gradient_on_the_card(cuda, S, with_s0):
     before = k3.launches
     got, want = _card_grads(cuda, ops.wkv, ref.wkv6_ref, inputs)
     assert k3.launches == before + 1
+    # w's gradient as ∂/∂w where w ≥ 0.05, as w ⊙ ∂/∂w below: the
+    # chunked formula takes log w, so ∂/∂w divides its rounding by w
+    w = w.to(cuda)
+    big = w >= 0.05
+    got, want = ([*x[:3], torch.where(big, x[3], 0.0),
+                  torch.where(big, 0.0, x[3] * w), *x[4:]]
+                 for x in (got, want))
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)

@@ -24,8 +24,9 @@ from repro.optim import global_norm as j_global_norm
 from repro.train import compression as jcomp
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
-                               clip_by_global_norm, cosine_warmup,
-                               global_norm)
+                               clip_by_global_norm, clip_by_global_norm_,
+                               cosine_warmup, global_norm)
+from repro_torch.optim import adamw as tadamw
 from repro_torch.train import compression as tcomp
 
 F32 = dict(rtol=1e-6, atol=0)
@@ -90,6 +91,52 @@ def test_clip_keeps_each_leafs_dtype():
     assert got["f"].dtype == torch.float32
     for k in tree:
         _close(got[k], want[k], BF16 if k != "f" else F32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_clip_in_place_is_the_clip(dtype):
+    """The train step's in-place clip: the functional clip's values and
+    norm exactly, written into the leaves it was given."""
+    tree = {**_tree(4, dtype, 3.0), "f": _tree(5)["a"]}
+    want, want_norm = clip_by_global_norm(_torch(tree), 1.0)
+    got = _torch(tree)
+    leaves = dict(got)
+    norm = clip_by_global_norm_(got, 1.0)
+    assert torch.equal(norm, want_norm)
+    for k in tree:
+        assert got[k] is leaves[k]
+        assert got[k].dtype == want[k].dtype
+        assert torch.equal(got[k], want[k])
+
+
+@pytest.mark.parametrize("param_dtype,state_dtype", [
+    ("float32", "float32"), ("bfloat16", "bfloat16")])
+def test_adamw_in_slices_is_the_whole_leaf_update(param_dtype, state_dtype,
+                                                  monkeypatch):
+    """Leaves updated in slices of 7 elements along their first
+    dimension (a transposed, non-contiguous gradient and a 0-d leaf
+    among them) equal the same update of whole leaves bit for bit."""
+    cfg = AdamWConfig(lr=1e-2, weight_decay=0.1, state_dtype=state_dtype)
+    params = {**_tree(6, param_dtype), "d": np.float32(0.5)}
+    params["d"] = np.asarray(jnp.asarray(params["d"]).astype(param_dtype))
+    grads = {**_tree(7), "d": np.float32(-0.25)}
+
+    def update():
+        tp = _torch(params)
+        ts = adamw_init(tp, cfg)
+        tg = {k: torch.tensor(v) for k, v in grads.items()}
+        tg["a"] = tg["a"].T.contiguous().T
+        assert not tg["a"].is_contiguous()
+        for lr_scale in (1.0, 0.5):
+            tp, ts = adamw_update(tg, ts, tp, cfg, torch.tensor(lr_scale))
+        return tp, ts
+    whole = update()
+    monkeypatch.setattr(tadamw, "_SLICE", 7)
+    sliced = update()
+    for k in params:
+        assert torch.equal(sliced[0][k], whole[0][k])
+        assert torch.equal(sliced[1]["mu"][k], whole[1]["mu"][k])
+        assert torch.equal(sliced[1]["nu"][k], whole[1]["nu"][k])
 
 
 @pytest.mark.parametrize("param_dtype,state_dtype", [
