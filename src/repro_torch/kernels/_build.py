@@ -18,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ..trace import spans
+
 __all__ = ["build", "function", "ptxas_report", "sass_counts"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -52,7 +54,9 @@ def build(source: Path) -> Path:
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
            "-std=c++17", "-O3", "-Xptxas", "-v", "-shared",
            "-Xcompiler", "-fPIC", "-o", str(tmp), str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with spans.span("kernels.build", source=source.stem):
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    spans.add("kernels.built")
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
@@ -70,7 +74,8 @@ def function(source: Path, name: str, argtypes: list) -> ctypes._CFuncPtr:
     returning an ``int`` (a ``cudaError_t``); loaded once per process."""
     key = (source, name)
     if key not in _fns:
-        fn = getattr(ctypes.CDLL(str(build(source))), name)
+        with spans.span("kernels.load", source=source.stem, entry=name):
+            fn = getattr(ctypes.CDLL(str(build(source))), name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _fns[key] = fn

@@ -47,6 +47,7 @@ from . import grad as _grad
 from . import ref
 from . import rglru as _rglru
 from . import wkv6 as _wkv6
+from ..trace import spans
 
 __all__ = ["attention", "wkv", "rglru", "attention_pairs",
            "attention_flops", "scan_flops", "wkv_flops", "grad_flops",
@@ -273,7 +274,8 @@ def _define(name: str, cpu: Callable, cuda: Callable, fake: Callable,
     def through(ctx, *grads):
         xs = ctx.saved_tensors
         if xs[0].device.type != "meta":
-            got = backward_of(xs, grads, *ctx.options)
+            with spans.span(f"kernels.{name}.backward"):
+                got = backward_of(xs, grads, *ctx.options)
         else:
             args = (name, [None if x is None else x.shape for x in xs],
                     xs[0].dtype, ctx.options)

@@ -11,7 +11,10 @@ Prints the wall seconds, the device-kernel seconds and the device's idle
 share of the wall (one stream, so kernels do not overlap), the kernel
 launches per engine step (prefills and decode ticks), then the kernels
 with the most device time and the port's own kernels (K1, K2, K3) with
-their launches per step.  ``--out`` also writes them as JSON.  The
+their launches per step, and the program's spans
+(:mod:`repro_torch.trace.spans`, on while the profiler runs): each
+span's calls, host milliseconds and the device milliseconds of the
+kernels launched inside it.  ``--out`` also writes them as JSON.  The
 weights are made, and a warm-up run is served, before the profiler
 starts.  ``--layers N`` cuts the depth to N layers, at full width, for
 a model whose weights do not fit one card (llama4-maverick-400b-a17b at
@@ -29,6 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..configs import get_config, get_smoke_config
 from ..models import init_params
+from ..trace import spans
 from .serve import serve
 
 #: kernels of this package, by the name of their CUDA function
@@ -36,12 +40,40 @@ PORT_KERNELS = ("flash_attention_tc", "flash_attention_f32",
                 "rglru_scan_kernel", "rglru_chunk_", "wkv6_kernel")
 
 
-def _device_us(evt) -> float:
+def _device_us(evt, kind: str = "self_") -> float:
+    """The event's own device µs (``kind=""``: with its children's)."""
     # the attribute's name changed across PyTorch releases
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(evt, name):
-            return float(getattr(evt, name))
+    for name in ("device_time_total", "cuda_time_total"):
+        if hasattr(evt, kind + name):
+            return float(getattr(evt, kind + name))
     raise AttributeError("profiler event has no device time attribute")
+
+
+def kernel_events(events: list) -> list:
+    """The device kernels of ``key_averages()``: the program's spans, as
+    the profiler marks them on the device's timeline too, are not."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith(spans.PREFIXES)]
+
+
+def span_rows(events: list) -> list[dict]:
+    """Each program span of ``key_averages()``: its calls, host ms and
+    the device ms of the kernels launched inside it."""
+    return [{"span": e.key, "calls": e.count,
+             "host_ms": e.cpu_time_total / 1e3,
+             "device_ms": _device_us(e, "") / 1e3}
+            for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.key.startswith(spans.PREFIXES)]
+
+
+def print_spans(rows: list[dict]) -> None:
+    print(" program spans (host ms; device ms of the kernels launched "
+          "inside, on the span's thread):")
+    for r in rows:
+        print(f"  {r['host_ms']:10.3f} ms  {r['device_ms']:10.3f} ms  "
+              f"{r['calls']:6d} calls  {r['span']}")
 
 
 def main() -> None:
@@ -71,13 +103,16 @@ def main() -> None:
     params = init_params(cfg, seed=args.seed)
     serve(cfg, requests=2, max_batch=args.max_batch, max_new=2,
           seed=args.seed + 1, params=params)
+    spans.enable()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         result = serve(cfg, requests=args.requests,
                        max_batch=args.max_batch, max_new=args.max_new,
                        seed=args.seed, params=params)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans.disable()
+    spans.reset()
+    events = prof.key_averages()
+    kernels = kernel_events(events)
     device_s = sum(_device_us(e) for e in kernels) / 1e6
     wall = result["wall_s"]
     kernels.sort(key=_device_us, reverse=True)
@@ -103,7 +138,8 @@ def main() -> None:
                "kernel_launches": launches, "prefills": engine.prefills,
                "decode_ticks": engine.ticks,
                "launches_per_step": launches / steps,
-               "top": top, "port_kernels": ours}
+               "top": top, "port_kernels": ours,
+               "spans": span_rows(events)}
     print(f"{card}: {cfg.name}, {args.requests} requests, "
           f"{summary['tokens']} tokens; wall {wall:.4f} s (profiled), "
           f"device kernels {device_s:.4f} s, idle share "
@@ -117,6 +153,7 @@ def main() -> None:
                         if "launches_per_step" in r else "")
             print(f"  {r['device_ms']:10.3f} ms  {r['calls']:6d} calls  "
                   f"{r['kernel']}{per_step}")
+    print_spans(summary["spans"])
     if args.out:
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)

@@ -11,8 +11,10 @@ schedule and AdamW), the two functions the step is made of — the wall
 seconds, the device-kernel seconds, the device's idle
 share of the wall (one stream, so kernels do not overlap) and the kernel
 launches.  Then the step's kernels with the most device time, K1's
-launches and share, and the host-side operations with the most self CPU
-time; and, unprofiled, the host's microseconds a launch for a loop of
+launches and share, the host-side operations with the most self CPU
+time and the program's spans (:mod:`repro_torch.trace.spans`, on while
+the profiler runs: each span's calls, host ms and the device ms of the
+kernels launched inside it); and, unprofiled, the host's microseconds a launch for a loop of
 one-element additions, the floor of eager PyTorch on this machine.
 ``--out`` also writes them as JSON.  Two steps run before the profiler
 starts.  Needs a CUDA device.
@@ -30,30 +32,30 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..configs import get_config, get_smoke_config
 from ..train.steps import StepConfig, apply_update, grads_of
+from ..trace import spans
 from ..train.trainer import Trainer, TrainerConfig
-from .profile_serve import PORT_KERNELS, _device_us
+from .profile_serve import (PORT_KERNELS, _device_us, kernel_events,
+                            print_spans, span_rows)
 
 
 def _profiled(fn) -> tuple[list, float]:
     """key_averages() of one synchronised call of ``fn``, and its wall
     seconds."""
     torch.cuda.synchronize()
+    spans.enable()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    spans.disable()
+    spans.reset()
     return list(prof.key_averages()), wall
 
 
-def _kernels(events: list) -> list:
-    return [e for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-
-
 def _summary(events: list, wall: float) -> dict:
-    kernels = _kernels(events)
+    kernels = kernel_events(events)
     device_s = sum(_device_us(e) for e in kernels) / 1e6
     return {"wall_s": wall, "device_kernel_s": device_s,
             "device_idle_share": 1.0 - device_s / wall,
@@ -99,7 +101,7 @@ def main() -> None:
     events, wall = _profiled(lambda: trainer.run(1))
     phases = {"step": _summary(events, wall)}
     device_s = phases["step"]["device_kernel_s"]
-    kernels = sorted(_kernels(events), key=_device_us, reverse=True)
+    kernels = sorted(kernel_events(events), key=_device_us, reverse=True)
 
     def row(e) -> dict:
         return {"kernel": e.key[:80], "calls": e.count,
@@ -110,7 +112,8 @@ def main() -> None:
     ours = [row(e) for e in kernels
             if any(name in e.key for name in PORT_KERNELS)]
     host = sorted((e for e in events
-                   if e.device_type == torch.autograd.DeviceType.CPU),
+                   if e.device_type == torch.autograd.DeviceType.CPU
+                   and not e.key.startswith(spans.PREFIXES)),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
     host_top = [{"op": e.key[:60], "calls": e.count,
                  "self_cpu_ms": e.self_cpu_time_total / 1e3}
@@ -142,6 +145,7 @@ def main() -> None:
                "parameters": sum(p.numel() for p in named.values()),
                "tensors": len(named), "phases": phases, "top": top,
                "port_kernels": ours, "host_top": host_top,
+               "spans": span_rows(events),
                "host_us_per_launch_floor": floor_us}
     print(f"{card}: {cfg.name} train step, {summary['tokens']} tokens, "
           f"{summary['parameters']} parameters in {len(named)} tensors")
@@ -162,6 +166,7 @@ def main() -> None:
     for r in host_top:
         print(f"  {r['self_cpu_ms']:10.3f} ms  {r['calls']:6d} calls  "
               f"{r['op']}")
+    print_spans(summary["spans"])
     if args.out:
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
+from ..trace import spans
 
 __all__ = [
     "rmsnorm", "rope", "gqa_attention", "decode_gqa_attention",
@@ -236,7 +237,7 @@ class AttnLayer(nn.Module):
             m = rmsnorm(m, self.ln2_post, self.cfg.norm_eps)
         return h + m
 
-    def _attend(self, q, k, v, local: bool) -> torch.Tensor:
+    def attend(self, q, k, v, local: bool) -> torch.Tensor:
         window = self.cfg.window if local else None
         return gqa_attention(q, k, v, window=window,
                              softcap=self.cfg.attn_softcap)
@@ -250,9 +251,12 @@ class AttnLayer(nn.Module):
     def forward(self, h: torch.Tensor, positions: torch.Tensor, *,
                 local: bool = False):
         """Full-sequence block.  Returns (h, k, v) — the post-RoPE keys
-        and the values, which prefill stores in the cache."""
-        q, k, v = self.qkv(h, positions)
-        return self.finish(h, self._attend(q, k, v, local)), k, v
+        and the values."""
+        with spans.span("model.attn"):
+            q, k, v = self.qkv(h, positions)
+            o = self.attend(q, k, v, local)
+        with spans.span("model.ffn"):
+            return self.finish(h, o), k, v
 
 
 class MoELayer(AttnLayer):
@@ -272,8 +276,11 @@ class MoELayer(AttnLayer):
 
     def forward(self, h: torch.Tensor, positions: torch.Tensor, *,
                 local: bool = False):
-        q, k, v = self.qkv(h, positions)
-        h, aux = self.finish(h, self._attend(q, k, v, local))
+        with spans.span("model.attn"):
+            q, k, v = self.qkv(h, positions)
+            o = self.attend(q, k, v, local)
+        with spans.span("model.ffn"):
+            h, aux = self.finish(h, o)
         return h, k, v, aux
 
 

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..trace import spans
 from .layers import MLP, _fill_mlp, _normal_, _param, mlp_apply
 
 __all__ = ["moe_apply", "MoE", "fill_moe"]
@@ -48,40 +49,42 @@ def _dispatch_chunk(xc: torch.Tensor, p: Mapping, cfg
     E, k = cfg.n_experts, cfg.top_k
     C = max(k, int(math.ceil(c * k / E * cfg.capacity_factor)))
 
-    logits = xc.float() @ p["router"].float()                # (B, c, E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)       # (B, c, k)
-    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
-                                        min=1e-9)
+    with spans.span("moe.dispatch"):
+        logits = xc.float() @ p["router"].float()            # (B, c, E)
+        probs = torch.softmax(logits, dim=-1)
+        gate_vals, gate_idx = torch.topk(probs, k, dim=-1)   # (B, c, k)
+        gate_vals = gate_vals / torch.clamp(
+            gate_vals.sum(-1, keepdim=True), min=1e-9)
 
-    # aux load-balance loss: fraction of tokens per expert × mean prob
-    f_e = F.one_hot(gate_idx[..., 0], E).float().mean(dim=(0, 1))
-    aux = E * torch.sum(f_e * probs.mean(dim=(0, 1)))
+        # aux load-balance loss: fraction of tokens per expert × mean prob
+        f_e = F.one_hot(gate_idx[..., 0], E).float().mean(dim=(0, 1))
+        aux = E * torch.sum(f_e * probs.mean(dim=(0, 1)))
 
-    # position of each (token, slot) within its expert's capacity buffer
-    dispatch = xc.new_zeros((B, c, E, C))
-    combine = torch.zeros((B, c, E, C), dtype=torch.float32,
-                          device=xc.device)
-    fill = torch.zeros((B, E), dtype=torch.long, device=xc.device)
-    for slot in range(k):
-        e_hot = F.one_hot(gate_idx[..., slot], E)            # (B, c, E)
-        pos = fill[:, None, :] + torch.cumsum(e_hot, dim=1) - e_hot
-        keep = (e_hot > 0) & (pos < C)
-        # a kept pair has e_hot = 1, so this is the reference's
-        # pos_hot · e_hot
-        sel = F.one_hot(torch.where(keep, pos, C), C + 1)[..., :C] \
-            .to(xc.dtype)                                    # (B, c, E, C)
-        dispatch = dispatch + sel
-        combine = combine + sel.float() * gate_vals[..., slot, None, None]
-        fill = fill + e_hot.sum(dim=1)
+        # position of each (token, slot) within its expert's capacity buffer
+        dispatch = xc.new_zeros((B, c, E, C))
+        combine = torch.zeros((B, c, E, C), dtype=torch.float32,
+                              device=xc.device)
+        fill = torch.zeros((B, E), dtype=torch.long, device=xc.device)
+        for slot in range(k):
+            e_hot = F.one_hot(gate_idx[..., slot], E)        # (B, c, E)
+            pos = fill[:, None, :] + torch.cumsum(e_hot, dim=1) - e_hot
+            keep = (e_hot > 0) & (pos < C)
+            # a kept pair has e_hot = 1, so this is the reference's
+            # pos_hot · e_hot
+            sel = F.one_hot(torch.where(keep, pos, C), C + 1)[..., :C] \
+                .to(xc.dtype)                                # (B, c, E, C)
+            dispatch = dispatch + sel
+            combine = combine + sel.float() * gate_vals[..., slot, None, None]
+            fill = fill + e_hot.sum(dim=1)
 
-    xd = torch.einsum("bcek,bcd->ebkd", dispatch, xc)        # (E, B, C, d)
-    xd = xd.reshape(E, B * C, d)
-    h = F.silu(torch.bmm(xd, p["w1"]))
-    if "w3" in p:
-        h = h * torch.bmm(xd, p["w3"])
-    ye = torch.bmm(h, p["w2"]).reshape(E, B, C, d)
-    out = torch.einsum("bcek,ebkd->bcd", combine.to(ye.dtype), ye)
+        xd = torch.einsum("bcek,bcd->ebkd", dispatch, xc)    # (E, B, C, d)
+        xd = xd.reshape(E, B * C, d)
+    with spans.span("moe.experts"):
+        h = F.silu(torch.bmm(xd, p["w1"]))
+        if "w3" in p:
+            h = h * torch.bmm(xd, p["w3"])
+        ye = torch.bmm(h, p["w2"]).reshape(E, B, C, d)
+        out = torch.einsum("bcek,ebkd->bcd", combine.to(ye.dtype), ye)
     return out, aux
 
 

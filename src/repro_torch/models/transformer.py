@@ -50,6 +50,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..trace import spans
 from .config import LayerKind, ModelConfig
 from .layers import (AttnLayer, MoELayer, decode_gqa_attention,
                      fill_attn_layer, fill_moe_layer, rmsnorm)
@@ -130,11 +131,13 @@ class Transformer(nn.Module):
 
     def unembed(self, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        h = rmsnorm(h, self.final_ln, cfg.norm_eps)
-        logits = h @ (self.embed.T if cfg.tie_embeddings else self.lm_head)
-        if cfg.logit_softcap is not None:
-            logits = cfg.logit_softcap * torch.tanh(
-                logits / cfg.logit_softcap)
+        with spans.span("model.head"):
+            h = rmsnorm(h, self.final_ln, cfg.norm_eps)
+            logits = h @ (self.embed.T if cfg.tie_embeddings
+                          else self.lm_head)
+            if cfg.logit_softcap is not None:
+                logits = cfg.logit_softcap * torch.tanh(
+                    logits / cfg.logit_softcap)
         return logits
 
 
@@ -182,7 +185,10 @@ def _run(params: Transformer, h: torch.Tensor, positions: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(first, first + n):
         layer = params.layers[i]
-        if isinstance(layer, (RGLRULayer, RWKVLayer)):
+        if isinstance(layer, RWKVLayer):
+            with spans.span("model.rwkv"):
+                h = layer(h)[0]
+        elif isinstance(layer, RGLRULayer):
             h = layer(h)[0]
         elif isinstance(layer, MoELayer):
             h, _, _, a = layer(h, positions, local=params.local(i))
@@ -439,27 +445,30 @@ def decode_step(params: Transformer, token: torch.Tensor, pos: torch.Tensor,
     rows = torch.arange(B, device=h.device)
     for layer, c in zip(params.layers, cache):
         if isinstance(layer, RWKVLayer):
-            h, state = layer(h, c)
-            c.update(state)
+            with spans.span("model.rwkv"):
+                h, state = layer(h, c)
+                c.update(state)
             continue
         if isinstance(layer, RGLRULayer):
             h, state = layer.step(h, c)
             c["h"].copy_(state["h"])
             c["conv"].copy_(state["conv"])
             continue
-        q, k, v = layer.qkv(h, positions)
-        # Ring semantics are universal: slot = pos % Sc (see reference).
-        slot = torch.remainder(pos, c["k"].shape[1])
-        if pos.dim():
-            c["k"][rows, slot] = _cache_store(k[:, 0], c["k"].dtype)
-            c["v"][rows, slot] = _cache_store(v[:, 0], c["v"].dtype)
-        else:
-            c["k"][:, slot] = _cache_store(k[:, 0], c["k"].dtype)
-            c["v"][:, slot] = _cache_store(v[:, 0], c["v"].dtype)
-        o = decode_gqa_attention(q, _cache_load(c["k"]),
-                                 _cache_load(c["v"]), pos, ring=True,
-                                 softcap=cfg.attn_softcap)
-        h = layer.finish(h, o)
+        with spans.span("model.attn"):
+            q, k, v = layer.qkv(h, positions)
+            # Ring semantics are universal: slot = pos % Sc (see reference).
+            slot = torch.remainder(pos, c["k"].shape[1])
+            if pos.dim():
+                c["k"][rows, slot] = _cache_store(k[:, 0], c["k"].dtype)
+                c["v"][rows, slot] = _cache_store(v[:, 0], c["v"].dtype)
+            else:
+                c["k"][:, slot] = _cache_store(k[:, 0], c["k"].dtype)
+                c["v"][:, slot] = _cache_store(v[:, 0], c["v"].dtype)
+            o = decode_gqa_attention(q, _cache_load(c["k"]),
+                                     _cache_load(c["v"]), pos, ring=True,
+                                     softcap=cfg.attn_softcap)
+        with spans.span("model.ffn"):
+            h = layer.finish(h, o)
         if isinstance(layer, MoELayer):
             h = h[0]                # its aux is dropped, as the reference's
     return params.unembed(h)[:, 0], cache
@@ -498,26 +507,32 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
     for i, (layer, c) in enumerate(zip(params.layers, cache)):
         if isinstance(layer, RWKVLayer):
             # from the zero state, as the reference synthesizes one
-            h, state = layer(h, c)
-            c.update(state)
+            with spans.span("model.rwkv"):
+                h, state = layer(h, c)
+                c.update(state)
             continue
         if isinstance(layer, RGLRULayer):
             h, state = layer(h)
             c["h"].copy_(state["h"])
             c["conv"].copy_(state["conv"])
             continue
-        # an MoE layer's aux, its fourth output, is dropped
-        h, k, v = layer(h, positions, local=params.local(i))[:3]
-        Sc = c["k"].shape[1]
-        n = min(L, Sc)
-        k, v = (x[:, L - n:L] for x in (k, v))
-        if n == Sc:
-            # Ring buffer no longer than the prompt: its last Sc keys, each
-            # at slot position % Sc as decode reads them.  (The reference
-            # asserts S % Sc == 0, where the roll is 0.)
-            k, v = (torch.roll(x, L % Sc, dims=1) for x in (k, v))
-        c["k"][:, :n] = _cache_store(k, c["k"].dtype)
-        c["v"][:, :n] = _cache_store(v, c["v"].dtype)
+        with spans.span("model.attn"):
+            q, k, v = layer.qkv(h, positions)
+            o = layer.attend(q, k, v, params.local(i))
+            Sc = c["k"].shape[1]
+            n = min(L, Sc)
+            k, v = (x[:, L - n:L] for x in (k, v))
+            if n == Sc:
+                # Ring buffer no longer than the prompt: its last Sc keys,
+                # each at slot position % Sc as decode reads them.  (The
+                # reference asserts S % Sc == 0, where the roll is 0.)
+                k, v = (torch.roll(x, L % Sc, dims=1) for x in (k, v))
+            c["k"][:, :n] = _cache_store(k, c["k"].dtype)
+            c["v"][:, :n] = _cache_store(v, c["v"].dtype)
+        with spans.span("model.ffn"):
+            h = layer.finish(h, o)
+        if isinstance(layer, MoELayer):
+            h = h[0]            # its aux is dropped, as the reference's
     if return_all_logits:
         return params.unembed(h), cache
     return params.unembed(h[:, -1:])[:, 0], cache

@@ -33,6 +33,7 @@ from ..core.monitoring import TaskMonitor
 from ..models import ModelConfig, decode_step, init_cache, prefill
 from ..models.config import LayerKind
 from ..models.transformer import Transformer, resolve_device
+from ..trace import spans
 from .admission import AdmissionController
 from .slo import SLOClass
 
@@ -177,11 +178,14 @@ class ServingEngine:
 
     def _publish(self, kind: EventKind, task_id: int, type_name: str,
                  cost: float, elapsed: float | None = None,
-                 data: dict | None = None) -> None:
+                 data: dict | None = None) -> float:
+        """Publish one event; returns the time it was stamped with."""
+        now = self._clock()
         self.bus.publish(RuntimeEvent(
-            kind=kind, time=self._clock(), task_id=task_id,
+            kind=kind, time=now, task_id=task_id,
             type_name=type_name, cost=cost, elapsed=elapsed,
             data=data or {}))
+        return now
 
     def submit(self, req: Request) -> Request:
         if req.request_id is None:
@@ -251,34 +255,48 @@ class ServingEngine:
         return self.queue.pop(best)
 
     def _admit(self) -> None:
-        for slot in range(self.max_batch):
-            if self.active[slot] is not None or not self.queue:
-                continue
-            req = self._pop_next()
-            self._publish(EventKind.TASK_EXECUTE, req.request_id,
-                          req.type_name, req.cost)
-            t0 = self._clock()
-            toks = req.prompt
-            if self._bucketing:
-                bucket = max(16, 1 << (len(toks) - 1).bit_length())
-                toks = toks + [0] * (bucket - len(toks))
+        free = self.active.count(None)
+        if not (free and self.queue):
+            return
+        with spans.span("engine.admit", n=min(free, len(self.queue))):
+            for slot in range(self.max_batch):
+                if self.active[slot] is None and self.queue:
+                    self._prefill_into(slot, self._pop_next())
+
+    def _prefill_into(self, slot: int, req: Request) -> None:
+        """Prefill ``req`` alone (B=1) and move its cache into ``slot``."""
+        started = self._publish(EventKind.TASK_EXECUTE, req.request_id,
+                                req.type_name, req.cost)
+        # the request's wait, from the two stamps its events carry
+        spans.record("engine.queue", req.submitted_at, started,
+                     id=req.request_id)
+        t0 = self._clock()
+        toks = req.prompt
+        if self._bucketing:
+            bucket = max(16, 1 << (len(toks) - 1).bit_length())
+            toks = toks + [0] * (bucket - len(toks))
+        with spans.span("engine.prefill", id=req.request_id,
+                        length=len(req.prompt), bucket=len(toks)):
             prompt = torch.tensor([toks], dtype=torch.long,
                                   device=self.device)
-            logits, cache1 = self._prefill(self.params, prompt,
-                                           len(req.prompt))
+            with spans.span("engine.prefill.model"):
+                logits, cache1 = self._prefill(self.params, prompt,
+                                               len(req.prompt))
             self.prefills += 1
             if self._bucketing:
                 logits = logits[:, len(req.prompt) - 1]
-            first = int(torch.argmax(logits[0, :self.cfg.vocab]))
-            self.cache = _scatter_cache(self.cache, cache1, slot)
-            self.active[slot] = req
-            req.output.append(first)
-            self.tokens[slot] = first
-            self.pos[slot] = len(req.prompt)
-            self.remaining[slot] = req.max_new_tokens - 1
-            elapsed = self._clock() - t0
-            self._publish(EventKind.TASK_COMPLETED, req.request_id * 2 + 1,
-                          "prefill", float(len(req.prompt)), elapsed)
+            with spans.span("engine.prefill.first_token"):
+                first = int(torch.argmax(logits[0, :self.cfg.vocab]))
+            with spans.span("engine.prefill.scatter"):
+                self.cache = _scatter_cache(self.cache, cache1, slot)
+        self.active[slot] = req
+        req.output.append(first)
+        self.tokens[slot] = first
+        self.pos[slot] = len(req.prompt)
+        self.remaining[slot] = req.max_new_tokens - 1
+        elapsed = self._clock() - t0
+        self._publish(EventKind.TASK_COMPLETED, req.request_id * 2 + 1,
+                      "prefill", float(len(req.prompt)), elapsed)
 
     # -- decode tick ------------------------------------------------------------
 
@@ -289,15 +307,17 @@ class ServingEngine:
         if not live:
             return 0
         t0 = self._clock()
-        logits, self.cache = self._decode(self.params, self.tokens,
-                                          self.pos, self.cache)
-        nxt = torch.argmax(logits[:, :self.cfg.vocab], dim=-1)
-        self.tokens = nxt
-        self.pos = self.pos + 1
-        # The host copies wait for the device, so ``elapsed`` is the
-        # step's device time too (the reference read it before its copy).
-        nxt_host = nxt.cpu().numpy()
-        pos_host = self.pos.cpu().numpy()
+        with spans.span("engine.decode"):
+            logits, self.cache = self._decode(self.params, self.tokens,
+                                              self.pos, self.cache)
+            nxt = torch.argmax(logits[:, :self.cfg.vocab], dim=-1)
+            self.tokens = nxt
+            self.pos = self.pos + 1
+            # The host copies wait for the device, so ``elapsed`` is the
+            # step's device time too (the reference read it before its
+            # copy).
+            nxt_host = nxt.cpu().numpy()
+            pos_host = self.pos.cpu().numpy()
         elapsed = self._clock() - t0
         self._publish(EventKind.TASK_COMPLETED, next(self._ids) * 2,
                       "decode_tick", float(len(live)), elapsed)

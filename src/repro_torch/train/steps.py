@@ -23,6 +23,7 @@ from ..models import ModelConfig, Rules, decode_step, lm_loss
 from ..models.transformer import Transformer
 from ..optim import (AdamWConfig, adamw_update, clip_by_global_norm_,
                      cosine_warmup)
+from ..trace import spans
 from .compression import compress_grads
 
 __all__ = ["StepConfig", "grads_of", "apply_update", "make_train_step",
@@ -61,15 +62,18 @@ def grads_of(params: Transformer, cfg: ModelConfig, batch: dict,
     loss, grads = 0.0, {}
     # as the reference: accum 1 takes the first microbatch only
     for a in range(tokens.shape[0] if step_cfg.accum > 1 else 1):
-        l_a = lm_loss(params, tokens[a], labels[a], cfg,
-                      prefix=None if prefix is None else prefix[a])
-        g_a = torch.autograd.grad(l_a, list(named.values()))
-        loss = loss + l_a.detach()
-        for k, g in zip(named, g_a):
-            if k in grads:
-                grads[k] += g.to(gdt)
-            else:
-                grads[k] = g.to(gdt)
+        with spans.span("train.forward"):
+            l_a = lm_loss(params, tokens[a], labels[a], cfg,
+                          prefix=None if prefix is None else prefix[a])
+        with spans.span("train.backward"):
+            g_a = torch.autograd.grad(l_a, list(named.values()))
+        with spans.span("train.accumulate"):
+            loss = loss + l_a.detach()
+            for k, g in zip(named, g_a):
+                if k in grads:
+                    grads[k] += g.to(gdt)
+                else:
+                    grads[k] = g.to(gdt)
     if step_cfg.accum > 1:
         inv = 1.0 / step_cfg.accum
         for g in grads.values():
@@ -96,12 +100,14 @@ def apply_update(params: Transformer, opt_state: dict, step: int,
                                      reference_leaves(named, cfg))
         grads.update(new)
         del new
-    gnorm = clip_by_global_norm_(grads, step_cfg.clip_norm)
+    with spans.span("optim.clip"):
+        gnorm = clip_by_global_norm_(grads, step_cfg.clip_norm)
     lr_scale = cosine_warmup(step, warmup=step_cfg.warmup,
                              total=step_cfg.total_steps)
     adam_state = {k: v for k, v in opt_state.items() if k != "ef"}
-    _, adam_state = adamw_update(grads, adam_state, named, opt_cfg,
-                                 lr_scale)
+    with spans.span("optim.adamw"):
+        _, adam_state = adamw_update(grads, adam_state, named, opt_cfg,
+                                     lr_scale)
     if ef_new is not None:
         adam_state["ef"] = ef_new
     return adam_state, gnorm, lr_scale
