@@ -6,17 +6,17 @@
 Phases, each of which raises on failure (the exit code is then nonzero
 and no result line is printed):
 
-1. build — print the card's name and power limit, compile the three
+1. build — print the card's name and power limit, compile the four
    kernels from ``src/repro_torch/kernels/csrc`` with ``nvcc`` for
    ``sm_90a`` (one ``nvcc`` per source, started together), print the
    build seconds and what ``ptxas -v`` says of registers and spills,
    K1's dynamic shared memory a block, the ``HGMMA`` (tensor-core
    ``wgmma``) instructions ``cuobjdump -sass`` finds in each K1 kernel
-   and the ``HMMA`` (``mma.sync``) ones in each K3 kernel, and K3's
-   thread block cluster as the runtime reports it (width, clusters that
-   fit at once, shared memory a block); K1's bf16 kernels and both K3
-   kernels must hold their tensor-core instructions, and K3 must run in
-   clusters;
+   and the ``HMMA`` (``mma.sync``) ones in each K3 kernel and in each
+   of K4's bf16 kernels, and K3's thread block cluster as the runtime
+   reports it (width, clusters that fit at once, shared memory a block);
+   K1's bf16 kernels, both K3 kernels and K4's three bf16 kernels must
+   hold their tensor-core instructions, and K3 must run in clusters;
 2. kernels against their plain versions on the card —
    K1 (flash attention) against ``ref.attention_ref`` at the serving
    paths' shapes (llama3.2-1b D=64, recurrentgemma-2b MQA D=256 with its
@@ -47,6 +47,16 @@ and no result line is printed):
    strided layout, w = 1e-38, w = 1, half the channels at 1e-6 and half
    at 0.999, a random s0 and a continuation (two halves against the
    whole);
+   K4 (the split-KV decode attention) against
+   ``ref.decode_attention_ref`` at each serving architecture's decode
+   shape (4 slots, the cache its local window or 2048 slots; gemma2-9b
+   with its softcap 50 and 4096 ring, recurrentgemma-2b's KV=1, G=10 and
+   2048 ring, llama3.2-1b's D=64) and at ``mixtral-8x22b.chat``'s (64
+   slots of 2816, H=48, KV=8, D=128), every slot mix a quarter short, a
+   quarter long, a quarter wrapped past the ring and a quarter dead
+   (far past it), and with float32 q against a bf16 and a float32
+   cache, within ``tests/test_kernels.py``'s tolerance (bf16 2e-2, f32
+   2e-5), one entry-point call each;
 3. times — each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (a yardstick only: the port
    never calls it; ``scaled_dot_product_attention`` takes no softcap, so
@@ -55,10 +65,12 @@ and no result line is printed):
    at phase 21's B=4, S=2048,
    at gemma2-9b's, deepseek-coder-33b's, llama4-maverick's and
    mixtral-8x22b's serving shapes and at internvl2-1b's prefix prefill
-   and train step; K2 and K3 at S=2048);
+   and train step; K2 and K3 at S=2048; K4 at ``mixtral-8x22b.chat``'s,
+   gemma2-9b's, llama3.2-1b's and recurrentgemma-2b's decode, its bound
+   the bytes of the valid K/V slots);
    for K1 also its achieved
-   TFLOP/s and its share of the bound; for K2 and K3 also the device
-   time a launch from a replayed CUDA graph, since back-to-back calls at
+   TFLOP/s and its share of the bound; for K2, K3 and K4 also the device
+   time a call from a replayed CUDA graph, since back-to-back calls at
    the serving shape time the Python wrapper;
 4. serve llama3.2-1b — full width (bf16, seeded random weights) through
    ``repro_torch.launch.serve``: 8 requests, max batch 4, 16 new tokens,
@@ -219,11 +231,13 @@ and no result line is printed):
 
 The launch counts of each serving path and of each full-width train run
 are set to 0 just before it and read just after; a kernel that the path
-does not run must show 0.  No kernel of the MoE layer: the reference
-computes the experts with ``jnp.einsum`` outside any kernel, and the port
-with ``torch.bmm``.  The last two lines are the kernels' JSON
-record and the result line ``{"ok": true, "device": {...}}``.  Needs one
-CUDA device; fails without.
+does not run must show 0.  K4 runs in every decode step, once a layer
+with attention: its count is those layers × the decode steps (the
+engine's ticks), and 0 on every train path and prefill.  No kernel of
+the MoE layer: the reference computes the experts with ``jnp.einsum``
+outside any kernel, and the port with ``torch.bmm``.  The last two
+lines are the kernels' JSON record and the result line ``{"ok": true,
+"device": {...}}``.  Needs one CUDA device; fails without.
 """
 
 from __future__ import annotations
@@ -240,6 +254,10 @@ from functools import partial
 from pathlib import Path
 
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+#: K4's limit on each slot's relative error, ||o_b − want_b|| / ||want_b||
+#: (tests/test_torch_kernels.py DECODE_REL_LIMIT): a sound kernel reads
+#: about 2.5e-3, one that drops a tile of a long slot about 0.17
+DECODE_REL_LIMIT = 1e-2
 SCAN_TOL = 1e-5
 WKV_TOL = 1e-4
 
@@ -333,7 +351,7 @@ def time_ms(torch, fn, iters: int) -> float:
 # -- 1. build ------------------------------------------------------------------
 
 
-def build(torch, kernels, fa, k3) -> None:
+def build(torch, kernels, fa, k3, fd) -> None:
     from repro_torch.kernels import _build
 
     def timed(mod):
@@ -375,6 +393,15 @@ def build(torch, kernels, fa, k3) -> None:
               "block")
         check(info["cluster_width"] > 1 and info["max_active_clusters"] > 0,
               f"K3 {dt}: cluster launch shape {info}")
+    # K4's bf16 kernels take both products with mma.sync (SASS HMMA)
+    hmma = {name: n for name, n in _build.sass_counts(fd._SOURCE,
+                                                      "HMMA").items()
+            if "flash_decode_split" in name}
+    for name, n in hmma.items():
+        print(f"[sass] {name}: {n} HMMA")
+    tc = [n for name, n in hmma.items() if "flash_decode_split_tc" in name]
+    check(len(tc) == 3 and all(n > 0 for n in tc),
+          f"K4's bf16 kernels hold no HMMA instruction: {hmma}")
 
 
 # -- 2. kernels against their plain versions -------------------------------------
@@ -756,6 +783,171 @@ def time_wkv(torch, k3, ref, B, H, S, *, zero_s0: bool) -> dict:
     return row
 
 
+#: the serving architectures whose decode steps K4 runs; phase 2 checks
+#: each at 4 slots of its local window's ring, or of 2048 slots
+DECODE_ARCHS = ("llama3.2-1b", "recurrentgemma-2b", "gemma2-9b",
+                "deepseek-coder-33b", "qwen1.5-110b", "musicgen-medium",
+                "internvl2-1b", "llama4-maverick-400b-a17b", "mixtral-8x22b")
+#: mixtral-8x22b.chat's decode: 64 slots of a 2816-slot cache
+CHAT_DECODE = (64, 2816)
+
+
+def decode_positions(B: int, Sc: int, seed: int) -> list[int]:
+    """B slots' positions over Sc cache slots, in turn short (under
+    Sc/8), long (up to Sc − 1), wrapped past the ring (Sc to 2·Sc) and
+    dead (10 to 20 × Sc: a freed slot's position keeps growing)."""
+    import random
+
+    rng = random.Random(seed)
+    spans = [(0, max(1, Sc // 8)), (Sc // 2, Sc), (Sc, 2 * Sc),
+             (10 * Sc, 20 * Sc)]
+    return [rng.randrange(*spans[i % 4]) for i in range(B)]
+
+
+def decode_inputs(torch, B, Sc, H, KV, D, q_dtype, kv_dtype, *, seed,
+                  scale=1.0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, dtype, s=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * s).to(dtype)
+    return (randn(B, 1, H, D, dtype=q_dtype, s=scale),
+            randn(B, Sc, KV, D, dtype=kv_dtype, s=scale),
+            randn(B, Sc, KV, D, dtype=kv_dtype),
+            torch.tensor(decode_positions(B, Sc, seed), device="cuda"))
+
+
+def slot_rel_err(o, want):
+    """(B,) relative errors of each slot's (1, H, D) output."""
+    d = (o.double() - want.double()).flatten(1).norm(dim=1)
+    return d / want.double().flatten(1).norm(dim=1)
+
+
+def check_decode(torch, fd, ref) -> float:
+    """K4 against its plain version at each serving architecture's decode
+    shape and at the chat cell's; returns the largest error at the chat
+    cell's shape.  The float32-q kernel rounds the probabilities as the
+    plain version does, the bf16 one keeps them float32.  Each slot's
+    relative error is held to ``DECODE_REL_LIMIT`` too, and at the chat
+    cell's shape a planted fault must fail it: the kernel run at
+    pos − T (the last tile of each slot's valid positions left out)."""
+    from repro_torch.configs import get_config
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    mix = get_config("mixtral-8x22b")
+    cases = [("mixtral-8x22b.chat", *CHAT_DECODE, mix.n_heads,
+              mix.kv_heads, mix.head_dim, bf16, bf16, None)]
+    for arch in DECODE_ARCHS:
+        cfg = get_config(arch)
+        cases.append((arch, 4, cfg.window or 2048, cfg.n_heads,
+                      cfg.kv_heads, cfg.head_dim, bf16, bf16,
+                      cfg.attn_softcap))
+    # the float32 models: float32 q, their bf16 cache or a float32 one
+    cases += [("f32 q G=6 D=128", 4, 300, 12, 2, 128, f32, bf16, None),
+              ("f32 q G=2 D=256 softcap", 4, 300, 4, 2, 256, f32, bf16,
+               50.0),
+              ("f32 q f32 cache G=4 D=64", 4, 300, 8, 2, 64, f32, f32, None)]
+    failed, main_err = [], None
+    for i, (name, B, Sc, H, KV, D, q_dt, kv_dt, softcap) in enumerate(cases):
+        q, k, v, pos = decode_inputs(torch, B, Sc, H, KV, D, q_dt, kv_dt,
+                                     seed=600 + i,
+                                     scale=3.0 if softcap else 1.0)
+        before = fd.launches
+        o = fd.flash_decode(q, k, v, pos, softcap=softcap)
+        torch.cuda.synchronize()
+        want = ref.decode_attention_ref(q, k, v, pos, softcap=softcap)
+        tol = TOL["float32" if kv_dt == f32 else "bfloat16"]
+        err = (o.float() - want.float()).abs().max().item()
+        rel = slot_rel_err(o, want)
+        ok = (o.shape == want.shape and o.dtype == want.dtype
+              and fd.launches == before + 1
+              and bool(torch.isfinite(o).all())
+              and torch.allclose(o.float(), want.float(), rtol=tol, atol=tol)
+              and rel.max().item() < DECODE_REL_LIMIT)
+        print(f"[check] K4 {name}: B={B} Sc={Sc} H={H} KV={KV} D={D} q "
+              f"{q_dt} cache {kv_dt}"
+              + (f" softcap {softcap:g}" if softcap else "")
+              + f", pos {pos.tolist()[:8]}{'…' if B > 8 else ''}: max|err| "
+              f"{err:.3e} (rtol=atol={tol:g}), slot rel err max "
+              f"{rel.max().item():.3e} (limit {DECODE_REL_LIMIT:g}) "
+              f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            failed.append(name)
+        if main_err is None:
+            main_err = err
+            # the planted fault: the last tile of each slot left out
+            T = 8192 // D
+            dropped = (pos >= T) & (pos < Sc)
+            faulty = slot_rel_err(
+                fd.flash_decode(q, k, v, torch.where(dropped, pos - T, pos),
+                                softcap=softcap), want)[dropped]
+            caught = bool(dropped.any()) and bool(
+                (faulty > DECODE_REL_LIMIT).all())
+            print(f"[check] K4 {name}, planted fault (last tile of "
+                  f"{int(dropped.sum())} slots left out): slot rel err min "
+                  f"{faulty.min().item():.3e} max {faulty.max().item():.3e}"
+                  f" {'caught' if caught else 'NOT CAUGHT'}")
+            if not caught:
+                failed.append(f"{name} fault")
+        del q, k, v, o, want
+    check(not failed, f"K4 disagrees with its plain version: {failed}")
+    return main_err
+
+
+def time_decode(torch, fd, ref, tag, B, Sc, H, KV, D,
+                softcap=None) -> dict:
+    """K4 at a decode shape (bf16), its slots in decode_positions' mix:
+    ms a call back to back, device ms a call from a CUDA graph, the plain
+    version, ``scaled_dot_product_attention`` with the valid slots as its
+    mask (a yardstick only: the port never calls it; it takes no
+    softcap), and the bound from the bytes of the valid slots."""
+    from torch.nn import functional as F
+
+    from repro_torch.launch.roofline import decode_bound
+
+    q, k, v, pos = decode_inputs(torch, B, Sc, H, KV, D, torch.bfloat16,
+                                 torch.bfloat16, seed=Sc + H)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    valid = (torch.arange(Sc, device="cuda")[None, :]
+             <= pos[:, None])[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid,
+                                              enable_gqa=True)
+
+    def kernel():
+        return fd.flash_decode(q, k, v, pos, softcap=softcap)
+
+    def plain():
+        return ref.decode_attention_ref(q, k, v, pos, softcap=softcap)
+
+    iters = 50 if B * Sc > 100_000 else 200
+    row = {"ms": time_ms(torch, kernel, iters),
+           "device_ms": device_ms(torch, kernel, 50),
+           "plain_ms": time_ms(torch, plain, 10),
+           "library_ms": None if softcap is not None
+           else time_ms(torch, library, iters)}
+    row["bound_ms"], row["bound_by"] = decode_bound(Sc, H, KV, D,
+                                                    pos.tolist())
+    row["shape"] = (f"{tag}: B={B} Sc={Sc} H={H} KV={KV} D={D} bf16"
+                    + (f" softcap {softcap:g}" if softcap else ""))
+    lib = "none (sdpa takes no softcap)" if row["library_ms"] is None \
+        else f"{row['library_ms']:.5f} ms"
+    print(f"[time] K4 {row['shape']}: kernel {row['ms']:.5f} ms a call "
+          f"({row['device_ms']:.5f} ms of device time, CUDA graph), plain "
+          f"{row['plain_ms']:.5f} ms, sdpa {lib}, bound "
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']}: the valid slots' "
+          f"bytes), {row['bound_ms'] / row['device_ms']:.4f} of the bound")
+    return row
+
+
+def attention_layers(params) -> int:
+    """Layers of ``params`` with attention (and so a K4 call a decode
+    step)."""
+    from repro_torch.models.layers import AttnLayer, MoELayer
+    return sum(isinstance(layer, (AttnLayer, MoELayer))
+               for layer in params.layers)
+
+
 # -- 4.-6. serving ----------------------------------------------------------------
 
 
@@ -817,6 +1009,10 @@ def serve_full_width(torch, arch: str, kernels: dict, expect: dict,
         check(launches[name] == per_prefill * engine.prefills,
               f"{arch}: {launches[name]} {name} launches for "
               f"{engine.prefills} prefills, want {per_prefill} each")
+    n_attn = attention_layers(engine.params)
+    check(launches["flash_decode"] == n_attn * engine.ticks,
+          f"{arch}: {launches['flash_decode']} flash_decode launches for "
+          f"{engine.ticks} decode ticks, want {n_attn} each")
     check(all(r.done and len(r.output) == 16 for r in reqs),
           "a request did not finish with 16 tokens")
     check(all(0 <= t < cfg.vocab for r in reqs for t in r.output),
@@ -1259,7 +1455,7 @@ def run_trainer(torch, kernels: dict, tag: str, arch: str, tcfg):
     check(all(math.isfinite(x) for x in losses + norms),
           "a loss or grad norm is not finite")
     want = {"flash_attention": 2 * cfg.n_layers * len(hist),
-            "rglru_scan": 0, "wkv6": 0}
+            "rglru_scan": 0, "wkv6": 0, "flash_decode": 0}
     check(launches == want, f"{tag}: kernel launches {launches}, want "
                             f"{want} (K1 {2 * cfg.n_layers} a step: "
                             "forward and remat recompute)")
@@ -1348,9 +1544,9 @@ def serve_with_prefix(torch, kernels: dict, tag: str) -> dict:
     check(all(0 <= t < cfg.vocab for t in out), "a token outside the "
                                                 "vocabulary")
     check(launches == {"flash_attention": cfg.n_layers, "rglru_scan": 0,
-                       "wkv6": 0},
+                       "wkv6": 0, "flash_decode": cfg.n_layers * n_new},
           f"{tag}: kernel launches {launches}, want K1 {cfg.n_layers} (the "
-          "prefill's) and no other")
+          f"prefill's), K4 {cfg.n_layers} × {n_new} steps and no other")
     # the prefill's logits are the forward's at the prompt's last position
     # (the same layers over the same positions; bf16 GEMMs of other
     # shapes round apart)
@@ -1539,7 +1735,7 @@ def elastic_drill(torch, kernels: dict, tag: str) -> dict:
     executed = fail_at + last - every
     check(len(hist) == executed, f"{tag}: {len(hist)} steps run")
     want = {"flash_attention": 2 * cfg.n_layers * executed,
-            "rglru_scan": 0, "wkv6": 0}
+            "rglru_scan": 0, "wkv6": 0, "flash_decode": 0}
     check(launches == want, f"{tag}: kernel launches {launches}, want "
                             f"{want} (32 a step: forward and remat "
                             "recompute)")
@@ -1594,7 +1790,7 @@ def traced_serving(torch, kernels: dict, tag: str) -> dict:
           f"{tag}: a request did not finish with 16 tokens")
     check(engine.prefills == 8, f"{tag}: {engine.prefills} prefills")
     want = {"flash_attention": 16 * engine.prefills, "rglru_scan": 0,
-            "wkv6": 0}
+            "wkv6": 0, "flash_decode": 16 * engine.ticks}
     check(launches == want, f"{tag}: kernel launches {launches}, want "
                             f"{want}")
     tmp = Path(tempfile.mkdtemp(prefix="trace_"))
@@ -1834,8 +2030,8 @@ def remat_on_card(torch, kernels: dict, card: str, tag: str
     check(out["full"]["peak"] < out["dots"]["peak"] < out["none"]["peak"],
           f"{tag}: the steps' peaks {[o['peak'] for o in out.values()]} "
           "are not ordered full < dots < none")
-    check(launches["rglru_scan"] == launches["wkv6"] == 0,
-          f"{tag}: launches {launches}")
+    check(launches["rglru_scan"] == launches["wkv6"]
+          == launches["flash_decode"] == 0, f"{tag}: launches {launches}")
     free_card(torch)
     return out, launches
 
@@ -1930,7 +2126,8 @@ def dryrun_against_card(torch, kernels: dict, remat: dict, card: str,
               f"{tag}: small {arch} prefill's logits")
         kinds = {"rglru_scan": "recurrentgemma" in arch,
                  "wkv6": "rwkv" in arch,
-                 "flash_attention": "recurrentgemma" in arch}
+                 "flash_attention": "recurrentgemma" in arch,
+                 "flash_decode": False}
         check(all((ran[k] > 0) == v for k, v in kinds.items()),
               f"{tag}: small {arch} prefill launched {ran}")
         del cell, meta
@@ -2095,8 +2292,10 @@ def analyzer_on_card(card: str, tag: str) -> None:
 #: the reference, and run once)
 RECURRENT_TRAIN = (
     ("recurrentgemma-2b", None,
-     {"flash_attention": 16, "rglru_scan": 34, "wkv6": 0}),
-    ("rwkv6-7b", 8, {"flash_attention": 0, "rglru_scan": 0, "wkv6": 16}),
+     {"flash_attention": 16, "rglru_scan": 34, "wkv6": 0,
+      "flash_decode": 0}),
+    ("rwkv6-7b", 8, {"flash_attention": 0, "rglru_scan": 0, "wkv6": 16,
+                     "flash_decode": 0}),
 )
 #: phase 24's batch (B × S tokens) and the steps timed after its warm-up
 RECURRENT_SHAPE = (2, 2048)
@@ -2195,6 +2394,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rglru as k2
     from repro_torch.kernels import wkv6 as k3
@@ -2208,10 +2408,11 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; TF32 off for matmul and cuDNN")
 
-    build(torch, [fa, k2, k3], fa, k3)
+    build(torch, [fa, k2, k3, fd], fa, k3, fd)
     fa_err = check_attention(torch, fa, ref)
     k2_err = check_scan(torch, k2, ref)
     k3_err = check_wkv(torch, k3, ref)
+    fd_err = check_decode(torch, fd, ref)
 
     t_fa = time_attention(torch, fa, ref, 1, 32, 32, 8, 64)
     time_attention(torch, fa, ref, 1, 2048, 32, 8, 64)
@@ -2231,8 +2432,15 @@ def main() -> int:
     time_scan(torch, k2, ref, 1, 2048, 2560)
     t_k3 = time_wkv(torch, k3, ref, 1, 64, 23, zero_s0=True)
     time_wkv(torch, k3, ref, 1, 64, 2048, zero_s0=False)
+    t_fd = time_decode(torch, fd, ref, "mixtral-8x22b.chat", *CHAT_DECODE,
+                       48, 8, 128)
+    time_decode(torch, fd, ref, "gemma2-9b", 4, 4096, 16, 8, 256,
+                softcap=50.0)
+    time_decode(torch, fd, ref, "llama3.2-1b", 4, 2048, 32, 8, 64)
+    time_decode(torch, fd, ref, "recurrentgemma-2b", 4, 2048, 10, 1, 256)
 
-    kernels = {"flash_attention": fa, "rglru_scan": k2, "wkv6": k3}
+    kernels = {"flash_attention": fa, "rglru_scan": k2, "wkv6": k3,
+               "flash_decode": fd}
     llama = serve_full_width(torch, "llama3.2-1b", kernels,
                              {"flash_attention": 16, "rglru_scan": 0,
                               "wkv6": 0}, "serve llama3.2-1b")
@@ -2379,6 +2587,9 @@ def main() -> int:
             k2_err, t_k2),
         row("wkv6", "wkv6.cu", "src/repro/kernels/rwkv6.py:77", k3_err,
             t_k3),
+        row("flash_decode", "flash_decode.cu",
+            "none: src/repro/models/layers.py decode_gqa_attention is plain "
+            "jnp under a pallas:flash_decode scope", fd_err, t_fd),
     ]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)

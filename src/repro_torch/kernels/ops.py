@@ -1,21 +1,22 @@
 """Dispatch between each kernel and its plain version, by device.
 
 Each kernel is a PyTorch custom operator (``torch.library.custom_op``):
-``repro_torch::flash_attention`` (K1), ``repro_torch::rglru_scan`` (K2)
-and ``repro_torch::wkv6`` (K3).  Its CPU implementation is the plain
-PyTorch version in :mod:`.ref` (the CPU tests, and the truth the kernels
-are held against); its CUDA implementation is the hand-written kernel,
-and if the kernel cannot be built or launched the call raises — nothing
-falls back to the plain version on the card.  On the meta device (the
+``repro_torch::flash_attention`` (K1), ``repro_torch::rglru_scan`` (K2),
+``repro_torch::wkv6`` (K3) and ``repro_torch::flash_decode`` (K4).  Its
+CPU implementation is the plain PyTorch version in :mod:`.ref` (the CPU
+tests, and the truth the kernels are held against); its CUDA
+implementation is the hand-written kernel, and if the kernel cannot be
+built or launched the call raises — nothing falls back to the plain
+version on the card.  On the meta device (the
 dry-run of :mod:`repro_torch.launch.cells`) the operator's fake returns
 outputs of the right shapes and runs nothing.  Mirrors
 :mod:`repro.kernels.ops`, whose ``impl=`` switch this replaces.
 
 Being operators, the kernel calls are what ``FlopCounterMode`` and the
 dry-run's dispatch modes see: each is counted by its analytic FLOPs
-(:func:`attention_flops`, :func:`scan_flops`, :func:`wkv_flops`), the
-same on the card, on the CPU and on meta, and a selective-checkpoint
-policy sees each kernel call as one op.
+(:func:`attention_flops`, :func:`scan_flops`, :func:`wkv_flops`,
+:func:`decode_flops`), the same on the card, on the CPU and on meta,
+and a selective-checkpoint policy sees each kernel call as one op.
 
 Gradients.  Each kernel computes a forward only, as its TPU counterpart
 does: the JAX package has no backward kernel, and its train step
@@ -35,6 +36,8 @@ meta-only operator that counts the formula's products
 its working set on the card and on the CPU (:func:`grad_workspace`) as
 arguments, which :class:`repro_torch.launch.roofline.StepMeter` counts,
 so that the dry-run's counts are those of the backward pass it models.
+K4, the one-token attention of a decode step, serves inference only and
+has no gradient.
 """
 
 from typing import Callable
@@ -43,14 +46,16 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from . import flash_attention as _fa
+from . import flash_decode as _fd
 from . import grad as _grad
 from . import ref
 from . import rglru as _rglru
 from . import wkv6 as _wkv6
 from ..trace import spans
 
-__all__ = ["attention", "wkv", "rglru", "attention_pairs",
-           "attention_flops", "scan_flops", "wkv_flops", "grad_flops",
+__all__ = ["attention", "decode_attention", "wkv", "rglru",
+           "attention_pairs", "attention_flops", "decode_flops",
+           "scan_flops", "wkv_flops", "grad_flops",
            "grad_workspace", "grad_traffic", "backward"]
 
 Tensor = torch.Tensor
@@ -72,6 +77,13 @@ def attention_flops(B: int, S: int, H: int, D: int,
     """K1's products: QKᵀ and PV, 2·D each per unmasked query-key pair
     and head."""
     return 4 * B * H * attention_pairs(S, window) * D
+
+
+def decode_flops(B: int, H: int, Sc: int, D: int) -> int:
+    """K4's products as its plain version counts them: QKᵀ and PV of one
+    query against every slot of the cache, 2·D each per slot and head —
+    the valid slots are known only on the device."""
+    return 4 * B * H * Sc * D
 
 
 def scan_flops(B: int, S: int, R: int) -> int:
@@ -319,6 +331,38 @@ def attention(q: Tensor, k: Tensor, v: Tensor, *,
               softcap: float | None = None) -> Tensor:
     """Causal GQA attention.  q: (B, S, H, D); k, v: (B, S, KV, D)."""
     return _attention(q, k, v, window, softcap)
+
+
+# -- K4 -------------------------------------------------------------------------
+
+
+def _decode_cpu(q: Tensor, k_cache: Tensor, v_cache: Tensor, pos: Tensor,
+                softcap: float | None) -> Tensor:
+    return ref.decode_attention_ref(q, k_cache, v_cache, pos,
+                                    softcap=softcap)
+
+
+def _decode_cuda(q, k_cache, v_cache, pos, softcap):
+    return _fd.flash_decode(q, k_cache, v_cache, pos, softcap=softcap)
+
+
+_decode = torch.library.custom_op("repro_torch::flash_decode", _decode_cpu,
+                                  mutates_args=(), device_types="cpu")
+_decode.register_kernel("cuda")(_decode_cuda)
+_decode.register_fake(lambda q, k_cache, v_cache, pos, softcap:
+                      q.new_empty(q.shape, dtype=v_cache.dtype))
+register_flop_formula(torch.ops.repro_torch.flash_decode)(
+    lambda q, k_cache, v_cache, pos, softcap, out_shape=None, **kw:
+    decode_flops(q[0], q[2], k_cache[1], q[3]))
+
+
+def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                     pos: Tensor, *, softcap: float | None = None) -> Tensor:
+    """One-token GQA attention against a cache, ring or linear (the slots
+    ``<= pos`` are valid in both).  q: (B, 1, H, D); caches:
+    (B, Sc, KV, D); ``pos`` on q's device, scalar or (B,).  Returns
+    (B, 1, H, D) in the cache's dtype."""
+    return _decode(q, k_cache, v_cache, pos, softcap)
 
 
 # -- K2 -------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each function here computes the function of its kernel in the simplest
-way (O(S²) attention with the full score matrix, the recurrence one step
-at a time, fp32 throughout) and is the truth the kernels are held
+way (O(S²) attention with the full score matrix, decode attention over
+every slot of the cache, the recurrence one step at a time, fp32
+throughout) and is the truth the kernels are held
 against: on the CPU the wrappers in
 :mod:`repro_torch.kernels.ops` call these, and ``chip_smoke.py``
 compares each kernel with its plain version on the card.  Mirrors
@@ -17,7 +18,7 @@ import math
 
 import torch
 
-__all__ = ["attention_ref", "wkv6_ref", "rglru_ref"]
+__all__ = ["attention_ref", "decode_attention_ref", "wkv6_ref", "rglru_ref"]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -44,6 +45,38 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, vf)
     return o.reshape(B, S, H, D).to(q.dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, pos: torch.Tensor, *,
+                         softcap: float | None = None) -> torch.Tensor:
+    """One-token GQA attention against a cache, the whole cache's scores.
+
+    q: (B, 1, H, D); caches: (B, Sc, K, D); ``pos`` — the position of the
+    current token, scalar or (B,).  The slots ``<= pos`` are valid, for a
+    ring (slot = position mod Sc) as for a linear cache: slot s of a ring
+    holds position pos − ((pos − s) mod Sc), which lies in [0, pos]
+    exactly when s <= pos.  fp32 scores and softmax; the probabilities
+    are rounded to the cache's dtype before the PV product, as the
+    reference model does.  Returns (B, 1, H, D) in the cache's dtype.
+    """
+    B, _, H, D = q.shape
+    Sc, K = k_cache.shape[1], k_cache.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(D)
+    qg = q.float().reshape(B, 1, K, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)              # (B,K,G,1,Sc)
+    slots = torch.arange(Sc, device=q.device)
+    pos = torch.as_tensor(pos, device=q.device)
+    posb = pos if pos.dim() else pos.expand(B)
+    posb = posb[:, None]                                   # (B, 1)
+    valid = slots[None, :] <= posb
+    s = s.masked_fill(~valid[:, None, None, None, :], -math.inf)
+    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache)
+    return o.reshape(B, 1, H, D)
 
 
 def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

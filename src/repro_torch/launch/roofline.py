@@ -33,7 +33,7 @@ Terms (seconds, one card)::
 
 The least time of each kernel on the card, which ``chip_smoke.py``
 prints beside each kernel's time, is here too (:func:`attention_bound`,
-:func:`scan_bound`, :func:`wkv_bound`).
+:func:`decode_bound`, :func:`scan_bound`, :func:`wkv_bound`).
 """
 
 from __future__ import annotations
@@ -52,8 +52,8 @@ from ..kernels.ops import attention_flops, attention_pairs, wkv_flops
 from .mesh import HW
 
 __all__ = ["StepCount", "StepMeter", "count_step", "roofline_terms",
-           "Terms", "model_flops", "attention_bound", "scan_bound",
-           "wkv_bound"]
+           "Terms", "model_flops", "attention_bound", "decode_bound",
+           "scan_bound", "wkv_bound"]
 
 _aten = torch.ops.aten
 #: operators that move no data: they allocate, or alias an input
@@ -309,6 +309,21 @@ def attention_bound(B, S, H, KV, D, window=None,
     bytes_s = (2 * B * S * H * D + 2 * B * S * KV * D) * 2 / HW.HBM_BW
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s >= bytes_s else "bytes")
+
+
+def decode_bound(Sc, H, KV, D, pos) -> tuple[float, str]:
+    """Least time on the card for one-token bf16 attention against a
+    cache of Sc slots (K4), ms, given each slot's position ``pos`` (a
+    sequence of ints, one a batch row): the bytes of its valid K and V
+    rows (min(pos + 1, Sc) of each row's Sc), of q and of o once each at
+    the memory rate, or 4·D operations a valid slot and query head at the
+    tensor-core peak, whichever is larger."""
+    B = len(pos)
+    valid = sum(min(max(int(p) + 1, 0), Sc) for p in pos)
+    bytes_s = (2 * valid * KV * D + 2 * B * H * D) * 2 / HW.HBM_BW
+    ops_s = 4 * valid * H * D / HW.PEAK_FLOPS
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s > bytes_s else "bytes")
 
 
 def scan_bound(*tensors) -> tuple[float, str]:

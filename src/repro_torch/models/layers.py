@@ -7,8 +7,10 @@ Layouts are the reference's: activations ``(B, S, d)``, q ``(B, S, H, D)``,
 k and v ``(B, S, KV, D)``, caches ``(B, Sc, KV, D)``, weights ``(in, out)``
 as used in ``x @ W``.  Full-sequence attention goes through
 :func:`repro_torch.kernels.ops.attention`, which launches the flash
-kernel on the card; one-token decode attention is plain PyTorch, as the
-reference computes it outside any kernel.
+kernel on the card; one-token decode attention through
+:func:`repro_torch.kernels.ops.decode_attention`, which launches the
+split-KV decode kernel (K4) there, where the reference computes it in
+plain ``jnp`` outside any kernel.
 
 Mixed dtypes follow the reference's promotion: where JAX promotes a
 bfloat16 operand against a float32 one, the port casts explicitly.
@@ -57,12 +59,6 @@ def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def _softcap(scores: torch.Tensor, cap: float | None) -> torch.Tensor:
-    if cap is None:
-        return scores
-    return cap * torch.tanh(scores / cap)
-
-
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   window: int | None = None,
                   softcap: float | None = None) -> torch.Tensor:
@@ -87,29 +83,15 @@ def decode_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor,
     q: (B, 1, H, D); caches: (B, Sc, K, D); ``pos`` — the position of the
     current token, scalar (homogeneous batch) or (B,) vector (continuous
     batching: every slot at its own depth).  ``ring=True`` means the
-    cache is a ring buffer (slot = position mod Sc).  Keys are stored
-    post-RoPE.  Returns (B, 1, H, D) in the cache's dtype.
+    cache is a ring buffer (slot = position mod Sc); the JAX reference's
+    parameter, kept for parity: both layouts keep the slots ``<= pos``,
+    so the operator takes no ``ring``.  Keys are stored post-RoPE.
+    Returns (B, 1, H, D) in the cache's dtype.  On the card this is K4,
+    which reads each valid slot of the cache once; on the CPU its plain
+    version, :func:`repro_torch.kernels.ref.decode_attention_ref`.
     """
-    B, _, H, D = q.shape
-    Sc, K = k_cache.shape[1], k_cache.shape[2]
-    G = H // K
-    scale = 1.0 / math.sqrt(D)
-    qg = q.float().reshape(B, 1, K, G, D)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache.float()) * scale
-    s = _softcap(s, softcap)                               # (B,K,G,1,Sc)
-    slots = torch.arange(Sc, device=q.device)
     pos = torch.as_tensor(pos, device=q.device)
-    posb = pos if pos.dim() else pos.expand(B)
-    posb = posb[:, None]                                   # (B, 1)
-    if ring:
-        slot_pos = posb - torch.remainder(posb - slots[None, :], Sc)
-        valid = (slot_pos >= 0) & (slot_pos <= posb)
-    else:
-        valid = slots[None, :] <= posb
-    s = s.masked_fill(~valid[:, None, None, None, :], -math.inf)
-    p = torch.softmax(s, dim=-1).to(v_cache.dtype)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache)
-    return o.reshape(B, 1, H, D)
+    return ops.decode_attention(q, k_cache, v_cache, pos, softcap=softcap)
 
 
 # ---------------------------------------------------------------------------

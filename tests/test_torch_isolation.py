@@ -83,7 +83,8 @@ def test_cuda_dispatch_has_no_fallback():
 #: kernel wrapper it must call
 CUDA_IMPLS = {"_attention_cuda": ("_fa", "flash_attention"),
               "_rglru_cuda": ("_rglru", "rglru_scan"),
-              "_wkv_cuda": ("_wkv6", "wkv6")}
+              "_wkv_cuda": ("_wkv6", "wkv6"),
+              "_decode_cuda": ("_fd", "flash_decode")}
 
 
 @pytest.mark.parametrize("impl", sorted(CUDA_IMPLS))
@@ -104,7 +105,8 @@ def test_cuda_implementation_calls_the_kernel(impl):
     assert (calls[0].value.id, calls[0].attr) == (mod, wrapper)
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "rglru_scan", "wkv6"])
+@pytest.mark.parametrize("name", ["flash_attention", "rglru_scan", "wkv6",
+                                  "flash_decode"])
 def test_operator_registers_the_cuda_implementation(name):
     """The CUDA kernel registered for ``repro_torch::<name>`` is the
     function the AST test above reads."""
@@ -116,7 +118,8 @@ def test_operator_registers_the_cuda_implementation(name):
     assert torch._C._dispatch_has_kernel_for_dispatch_key(op.name(), "CUDA")
     assert torch._C._dispatch_has_kernel_for_dispatch_key(op.name(), "CPU")
     impl = {"flash_attention": ops._attention_cuda,
-            "rglru_scan": ops._rglru_cuda, "wkv6": ops._wkv_cuda}[name]
+            "rglru_scan": ops._rglru_cuda, "wkv6": ops._wkv_cuda,
+            "flash_decode": ops._decode_cuda}[name]
     assert impl.__name__ in CUDA_IMPLS
 
 
@@ -128,6 +131,7 @@ def test_non_cpu_tensors_go_to_the_kernel(monkeypatch):
     import torch
 
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rglru as k2
     from repro_torch.kernels import wkv6 as k3
@@ -135,7 +139,7 @@ def test_non_cpu_tensors_go_to_the_kernel(monkeypatch):
     called = []
     for fn in ref.__all__:
         monkeypatch.setattr(ref, fn, lambda *a, fn=fn, **k: called.append(fn))
-    before = (fa.launches, k2.launches, k3.launches)
+    before = (fa.launches, k2.launches, k3.launches, fd.launches)
 
     def meta(*shape):
         return torch.empty(shape, device="meta", requires_grad=True)
@@ -153,5 +157,10 @@ def test_non_cpu_tensors_go_to_the_kernel(monkeypatch):
     loss = o.sum() + h.sum() + last.sum() + y.sum() + s.sum()
     grads = torch.autograd.grad(loss, [q, k, a, r])
     assert [g.shape for g in grads] == [q.shape, k.shape, a.shape, r.shape]
-    assert (fa.launches, k2.launches, k3.launches) == before
+    # decode (inference: no gradient)
+    o = ops.decode_attention(q.detach()[:, :1], k.detach(), k.detach(),
+                             torch.empty((1,), dtype=torch.int64,
+                                         device="meta"))
+    assert o.shape == (1, 1, 4, 64) and o.device.type == "meta"
+    assert (fa.launches, k2.launches, k3.launches, fd.launches) == before
     assert called == []

@@ -3,8 +3,9 @@
 against ``repro.kernels.ref.attention_ref`` and against the Pallas kernel
 in interpret mode, over the sweep of ``tests/test_kernels.py`` with its
 tolerances.  The CUDA kernels themselves (K1 flash attention, K2 the
-RG-LRU scan, K3 the RWKV-6 WKV) are held against their plain versions in
-the ``gpu``-marked tests, which need a card; K1's bf16 kernel (the
+RG-LRU scan, K3 the RWKV-6 WKV, K4 the split-KV decode attention) are
+held against their plain versions in the ``gpu``-marked tests, which
+need a card; K1's bf16 kernel (the
 tensor cores) also at the S values around its tiles.  Gradients: each
 kernel operator's backward (the reference's training formula,
 ``kernels/grad.py``) against autograd of that formula on the CPU, where
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import grad, ops, ref
 from repro_torch.kernels import rglru as k2
 from repro_torch.kernels import wkv6 as k3
@@ -237,8 +239,9 @@ def test_wkv_wrapper_refuses_what_it_cannot_launch():
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the port's kernels (K1 flash "
-                    "attention, K2 RG-LRU scan, K3 RWKV-6 WKV) are CUDA "
-                    "C++ for sm_90a and have no CPU mode")
+                    "attention, K2 RG-LRU scan, K3 RWKV-6 WKV, K4 decode "
+                    "attention) are CUDA C++ for sm_90a and have no CPU "
+                    "mode")
     return torch.device("cuda")
 
 
@@ -695,3 +698,195 @@ def test_wkv_gradient_on_the_card(cuda, S, with_s0):
                  for x in (got, want))
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K4: one-token attention against a cache
+# ---------------------------------------------------------------------------
+
+
+def _decode_inputs(B, Sc, H, K, D, *, seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, 1, H, D), dtype=np.float32) * scale
+    k = rng.standard_normal((B, Sc, K, D), dtype=np.float32) * scale
+    v = rng.standard_normal((B, Sc, K, D), dtype=np.float32)
+    return (torch.from_numpy(a) for a in (q, k, v))
+
+
+def test_cpu_decode_launches_no_kernel():
+    """On the CPU ``ops.decode_attention`` takes the plain version, and
+    only there."""
+    q, k, v = _decode_inputs(3, 16, 8, 2, 64, seed=0)
+    k, v = k.bfloat16(), v.bfloat16()
+    pos = torch.tensor([3, 21, 40])
+    before = fd.launches
+    torch.testing.assert_close(
+        ops.decode_attention(q, k, v, pos, softcap=20.0),
+        ref.decode_attention_ref(q, k, v, pos, softcap=20.0))
+    assert fd.launches == before
+
+
+def test_decode_wrapper_refuses_cpu_tensors():
+    q, k, v = _decode_inputs(1, 16, 4, 2, 64, seed=0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fd.flash_decode(q, k, v, torch.tensor(5))
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_decode_fake_on_meta(q_dtype):
+    """The operator's fake: the output's shape, in the cache's dtype, on
+    meta; no kernel and no plain version runs."""
+    def meta(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+    before = fd.launches
+    o = ops.decode_attention(meta(4, 1, 48, 128, dtype=q_dtype),
+                             meta(4, 2816, 8, 128), meta(4, 2816, 8, 128),
+                             meta(4, dtype=torch.int64))
+    assert (o.shape, o.dtype, o.device.type) \
+        == ((4, 1, 48, 128), torch.bfloat16, "meta")
+    assert fd.launches == before
+
+
+@pytest.mark.parametrize("B,Sc,H,K,D", [(3, 16, 8, 2, 16),
+                                        (2, 100, 48, 8, 128),
+                                        (1, 64, 10, 1, 256)])
+def test_decode_flops_are_the_plain_einsums(B, Sc, H, K, D):
+    """The operator counts what its plain version's two einsums count,
+    4·B·H·Sc·D, so that the dry-run's FLOPs do not move."""
+    from torch.utils.flop_counter import FlopCounterMode
+    q, k, v = _decode_inputs(B, Sc, H, K, D, seed=1)
+    k, v = k.bfloat16(), v.bfloat16()
+    pos = torch.arange(B) * 37
+    counts = []
+    for fn in (ops.decode_attention, ref.decode_attention_ref):
+        with FlopCounterMode(display=False) as counter:
+            fn(q, k, v, pos)
+        counts.append(counter.get_total_flops())
+    assert counts == [ops.decode_flops(B, H, Sc, D)] * 2
+
+
+@pytest.mark.parametrize("B,K,Sc,T", [(64, 8, 2816, 64), (4, 8, 4096, 64),
+                                      (4, 1, 2048, 32), (1, 1, 20, 128),
+                                      (64, 8, 64, 64)])
+def test_decode_splits_cover_the_cache(B, K, Sc, T):
+    """K4's splits come from the shapes alone: whole tiles each, every
+    slot of the cache in exactly one split, none empty by construction,
+    and at least half the blocks asked of the card where the cache has
+    the tiles (whole tiles a split round the count down)."""
+    n, chunk = fd.splits(B, K, Sc, T, 132)
+    tiles = -(-Sc // T)
+    assert chunk % T == 0 and (n - 1) * chunk < Sc <= n * chunk
+    assert 1 <= n <= tiles
+    assert 2 * B * K * n >= min(8 * 132, B * K * tiles)
+    if (B, K, Sc) == (64, 8, 2816):     # mixtral-8x22b.chat's decode
+        assert (n, chunk) == (3, 960)
+
+
+#: K4's limit on each slot's relative error against the plain version,
+#: ||o_b − want_b|| / ||want_b||: tied to the output's scale, where an
+#: elementwise bf16 tolerance is a large share of the values themselves
+#: (each output element's spread is about sqrt(e/n) over n valid slots).
+#: A sound kernel reads about 2.5e-3 (the bf16 output's rounding); one
+#: that drops a tile of 64 positions of a slot of 2816 reads about 0.17
+DECODE_REL_LIMIT = 1e-2
+
+
+def _slot_rel_err(o: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """(B,) relative errors of each slot's (1, H, D) output."""
+    d = (o.double() - want.double()).flatten(1).norm(dim=1)
+    return d / want.double().flatten(1).norm(dim=1)
+
+
+#: (name, B, Sc, H, KV, D, q dtype, cache dtype, pos, softcap) of K4's
+#: cases on the card: each head_dim and group size the port's
+#: architectures decode at, a softcap, rings wrapped past Sc, dead slots
+#: far past it, one position for all slots, and the float32 models'
+#: float32 q
+_bf16, _f32 = torch.bfloat16, torch.float32
+DECODE_CARD_CASES = [
+    ("G=1 D=64", 2, 300, 8, 8, 64, _bf16, _bf16, [0, 299], None),
+    ("G=2 D=256 softcap", 2, 300, 16, 8, 256, _bf16, _bf16, [17, 650],
+     50.0),
+    ("G=4 D=128", 3, 257, 16, 4, 128, _bf16, _bf16, [1, 255, 256], None),
+    ("G=5 D=128", 2, 129, 40, 8, 128, _bf16, _bf16, [64, 5000], None),
+    ("G=6 D=128", 4, 700, 48, 8, 128, _bf16, _bf16, [10, 699, 900, 9999],
+     None),
+    ("G=7 D=64", 2, 100, 14, 2, 64, _bf16, _bf16, [31, 99], None),
+    ("G=8 D=128", 2, 100, 64, 8, 128, _bf16, _bf16, [0, 77], None),
+    ("G=10 D=256", 2, 2048, 10, 1, 256, _bf16, _bf16, [2047, 3000], None),
+    ("one pos", 3, 200, 12, 2, 128, _bf16, _bf16, 150, None),
+    ("f32 q bf16 cache", 2, 100, 12, 2, 128, _f32, _bf16, [5, 130], None),
+    ("f32 q softcap D=256", 2, 70, 4, 2, 256, _f32, _bf16, [69, 3], 50.0),
+    ("f32 q f32 cache", 2, 90, 8, 2, 64, _f32, _f32, [40, 200], None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", DECODE_CARD_CASES, ids=lambda c: c[0])
+def test_decode_kernel_matches_plain(cuda, case):
+    """K4 against its plain version on the card, one entry-point call a
+    decode; a bf16 output within the bf16 tolerance (the plain version
+    rounds the probabilities to bf16, K4 keeps them float32), a float32
+    one within the float32 tolerance, and every slot within
+    ``DECODE_REL_LIMIT``."""
+    _, B, Sc, H, KV, D, q_dt, kv_dt, pos, softcap = case
+    q, k, v = _decode_inputs(B, Sc, H, KV, D, seed=Sc + H,
+                             scale=3.0 if softcap else 1.0)
+    q, k, v = q.to(cuda, q_dt), k.to(cuda, kv_dt), v.to(cuda, kv_dt)
+    pos = torch.tensor(pos, device=cuda)
+    before = fd.launches
+    o = ops.decode_attention(q, k, v, pos, softcap=softcap)
+    torch.cuda.synchronize()
+    assert fd.launches == before + 1
+    want = ref.decode_attention_ref(q, k, v, pos, softcap=softcap)
+    assert o.dtype == want.dtype == kv_dt
+    tol = _tol("float32" if kv_dt == torch.float32 else "bfloat16")
+    torch.testing.assert_close(o.float(), want.float(), **tol)
+    assert _slot_rel_err(o, want).max().item() < DECODE_REL_LIMIT
+
+
+@pytest.mark.gpu
+def test_decode_limit_catches_a_dropped_tile(cuda):
+    """A planted fault the limit must catch: K4's output with the last
+    tile of each slot's valid positions left out (the kernel run at
+    pos − T, T = 64 positions a tile at D = 128), against the plain
+    version at pos, at mixtral-8x22b.chat's decode shape with short,
+    long, wrapped and dead slots.  Every slot that loses a tile fails the
+    limit; the sound kernel passes it."""
+    B, Sc, H, KV, D, T = 16, 2816, 48, 8, 128, 64
+    q, k, v = (t.to(cuda, torch.bfloat16)
+               for t in _decode_inputs(B, Sc, H, KV, D, seed=28))
+    rng = np.random.default_rng(28)
+    spans = [(0, Sc // 8), (Sc // 2, Sc), (Sc, 2 * Sc), (10 * Sc, 20 * Sc)]
+    pos = torch.tensor([int(rng.integers(*spans[i % 4])) for i in range(B)],
+                       device=cuda)
+    want = ref.decode_attention_ref(q, k, v, pos)
+    sound = _slot_rel_err(ops.decode_attention(q, k, v, pos), want)
+    assert sound.max().item() < DECODE_REL_LIMIT
+    dropped = (pos >= T) & (pos < Sc)
+    assert dropped.sum().item() >= B // 4
+    faulty = _slot_rel_err(
+        ops.decode_attention(q, k, v, torch.where(dropped, pos - T, pos)),
+        want)
+    assert bool((faulty[dropped] > DECODE_REL_LIMIT).all())
+
+
+@pytest.mark.gpu
+def test_decode_kernel_refuses_what_it_cannot_launch(cuda):
+    """K4's wrapper raises, launching nothing, on a head_dim, a group
+    size, a layout or positions it does not take."""
+    q, k, v = (t.to(cuda, torch.bfloat16)
+               for t in _decode_inputs(2, 32, 8, 2, 64, seed=2))
+    pos = torch.tensor([3, 9], device=cuda)
+    before = fd.launches
+    q32, k32, v32 = (t[..., :32].contiguous() for t in (q, k, v))
+    bad = [((q32, k32, v32, pos), "head_dim 32"),
+           ((q.repeat(1, 1, 9, 1), k, v, pos), "at most 16"),
+           ((q, k.transpose(1, 2).contiguous().transpose(1, 2), v, pos),
+            "not contiguous"),
+           ((q, k, v, pos.float()), "pos is"),
+           ((q, k, v, torch.tensor([1, 2, 3], device=cuda)), "pos is")]
+    for args, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            fd.flash_decode(*args)
+    assert fd.launches == before

@@ -110,6 +110,38 @@ def test_decode_gqa_attention(pos_kind, ring, softcap):
     _close(o_t, o_j, _tol("bfloat16"))
 
 
+#: (pos of the three slots, ring, softcap) of each decode case: a softcap
+#: (gemma2-9b's 50) inside the ring, a ring wrapped past Sc, and a
+#: "dead" slot whose position ran far past the ring
+DECODE_CASES = {"softcap": ([0, 9, 15], True, 50.0),
+                "wrap": ([3, 21, 40], True, None),
+                "dead": ([7, 1016, 15], True, None)}
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+@pytest.mark.parametrize("G", [1, 6, 10])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_decode_gqa_attention_shapes(D, G, case):
+    """The decode operator's CPU path (K4's plain version) against the
+    reference at every head_dim K4 takes and at group sizes 1, 6
+    (mixtral-8x22b) and 10 (recurrentgemma-2b)."""
+    pos, ring, softcap = DECODE_CASES[case]
+    rng = np.random.default_rng(D + G)
+    B, Sc, K = 3, 16, 2
+    H = K * G
+    q = _rand(rng, B, 1, H, D, scale=2.0)
+    kc, vc = _rand(rng, B, Sc, K, D, scale=2.0), _rand(rng, B, Sc, K, D)
+    pos = np.array(pos, np.int32)
+    o_j = jl.decode_gqa_attention(_j(q, "bfloat16"), _j(kc, "bfloat16"),
+                                  _j(vc, "bfloat16"), jnp.asarray(pos),
+                                  ring=ring, softcap=softcap)
+    o_t = tl.decode_gqa_attention(_t(q, "bfloat16"), _t(kc, "bfloat16"),
+                                  _t(vc, "bfloat16"), torch.as_tensor(pos),
+                                  ring=ring, softcap=softcap)
+    assert o_t.dtype == torch.bfloat16 and o_t.shape == (B, 1, H, D)
+    _close(o_t, o_j, _tol("bfloat16"))
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("kind", ["swiglu", "geglu", "gelu"])
 def test_mlp_apply(kind, dtype):
