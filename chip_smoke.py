@@ -227,7 +227,20 @@ and no result line is printed):
     checkpointed) and K3 16 for rwkv6-7b, and no other, and the peak
     memory within ±15 % of the dry-run's peak for the same cell on
     meta.  Prints ms a step (the median of 3), tokens/s, model TFLOP/s
-    (6·N·B·S) and peak memory.
+    (6·N·B·S) and peak memory;
+25. deepseek-v3 on the card: one latent-attention layer at full width
+    (128 heads, q_lora 1536, kv_lora 512, nope 128 + rope 64, v 128,
+    bf16, the published init) over a seeded input of 1,024 and of 2,048
+    tokens, its prefill attention (K1 over q and k padded from 192 to
+    256 and v from 128, q pre-scaled) held against the plain causal
+    attention of the same unpadded q, k, v in float32: every (position,
+    head) row's relative error under ``MLA_ROW_REL_LIMIT``, one K1
+    launch, and the same plain attention with a scale that lacks YaRN's
+    m² over the limit; K1 timed at that padded shape (B=1, H=KV=128,
+    D=256); then the model at full width and 31 of its 61 layers (8 of
+    256 experts held, as ``deepseek-v3-ep32``) served as phase 4, K1 31
+    × prefills and K4 none, and one prefill of 1,024 and one of 2,048
+    tokens counted from 0: exactly 31 K1 launches each and no other.
 
 The launch counts of each serving path and of each full-width train run
 are set to 0 just before it and read just after; a kernel that the path
@@ -959,11 +972,13 @@ def free_card(torch) -> None:
 
 
 def serve_full_width(torch, arch: str, kernels: dict, expect: dict,
-                     tag: str, n_layers: int | None = None) -> dict:
+                     tag: str, n_layers: int | None = None,
+                     after=None) -> dict:
     """Serve ``arch`` at full width through the launcher's code path —
     at its full depth, or cut to ``n_layers`` where the weights do not
     fit one card; returns the launch counts of the run, read just after
-    it."""
+    it.  ``after(params, cfg)``, if given, runs last, on the served
+    weights."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import report, serve
     from repro_torch.models import forward, init_params
@@ -1037,6 +1052,8 @@ def serve_full_width(torch, arch: str, kernels: dict, expect: dict,
           f"at {same}/{len(reqs[0].output)} steps; largest gap "
           f"{gap.max().item():.4f} (logits up to "
           f"{lg.abs().max().item():.2f})")
+    if after is not None:
+        after(engine.params, cfg)
     return launches
 
 
@@ -2386,6 +2403,160 @@ def train_recurrent(torch, kernels: dict, card: str, tag: str) -> dict:
     return launches
 
 
+# -- 25. deepseek-v3 ------------------------------------------------------------
+
+#: phase 25's limit on each (position, head) row's relative error,
+#: ||o − want|| / ||want||, of deepseek-v3's prefill attention (K1 over
+#: the heads padded to 256, bf16) against the plain causal attention of
+#: the unpadded q, k, v in float32: on an H100 the sound rows read at
+#: most 1.45e-2 (median 4.0e-3) at S = 1,024 and 2,048, and a scale that
+#: lacks YaRN's m² reads 0.90 at the worst row (median 0.62)
+MLA_ROW_REL_LIMIT = 5e-2
+#: phase 25's prompt lengths: the two largest buckets of the
+#: ``deepseek-v3.chat`` cell (prompts 32–2048, median 1020)
+MLA_PREFILL_S = (1024, 2048)
+#: deepseek-v3-ep32's depth: the first stage of two (bench/configs)
+DEEPSEEK_LAYERS = 31
+
+
+def mla_plain_attention(torch, q, k, v, scale: float):
+    """Causal attention of q, k (B, S, H, nope + rope) and v (B, S, H,
+    v) in float32, 16 heads at a time: (B, S, H, v) float32."""
+    S, H = q.shape[1], q.shape[2]
+    causal = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    out = []
+    for h in range(0, H, 16):
+        qh, kh, vh = (t[:, :, h:h + 16].transpose(1, 2).float()
+                      for t in (q, k, v))
+        s = (qh @ kh.transpose(-1, -2)) * scale
+        s.masked_fill_(~causal, -math.inf)
+        out.append((torch.softmax(s, dim=-1) @ vh).transpose(1, 2))
+    return torch.cat(out, dim=2)
+
+
+def row_rel_err(o, want):
+    """(B, S, H) relative errors of each (position, head) row."""
+    d = (o.double() - want.double()).norm(dim=-1)
+    return d / want.double().norm(dim=-1)
+
+
+def check_mla_attention(torch, cfg, device, lengths, *, tag: str,
+                        seed: int = 25) -> float:
+    """One MLA layer of ``cfg`` (its published init) over a seeded
+    normed input of each length in ``lengths``: ``MLALayer.attend`` (K1
+    on the card, over q and k padded from nope + rope to 256 and v from
+    v_head_dim, q pre-scaled) against :func:`mla_plain_attention` of the
+    same q_nope, RoPE(q_pe) and latent, unpadded, with the keys and
+    values materialised in float32.  Each row's relative error must stay
+    under ``MLA_ROW_REL_LIMIT``, and the same plain attention with a
+    scale that lacks YaRN's m² (a planted fault) must exceed it.
+    Returns the largest sound row error."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.mla import MLALayer, fill_mla_layer, yarn_mscale
+
+    dtype = getattr(torch, cfg.dtype)
+    g = torch.Generator(device=device).manual_seed(seed)
+    layer = MLALayer(cfg, dtype=dtype, device=device)
+    fill_mla_layer(layer, g)
+    H, r = cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    m = yarn_mscale(cfg.yarn_factor, cfg.yarn_mscale_all_dim)
+    worst = 0.0
+    for S in lengths:
+        h = torch.randn((1, S, cfg.d_model), generator=g,
+                        device=device).to(dtype)
+        x = rmsnorm(h, layer.ln1, cfg.norm_eps)
+        rot = layer.rotation(torch.arange(S, device=device))
+        with torch.no_grad():
+            q_nope, q_pe = layer.queries(x, rot)
+            lat = layer.latent(x, rot)
+            before = fa.launches
+            o = layer.attend(q_nope, q_pe, lat)
+            ran = fa.launches - before
+            kv = (lat[..., :r].float() @ layer.wkv_b.float().T) \
+                .view(1, S, H, dn + dv)
+            q = torch.cat([q_nope, q_pe], dim=-1).float()
+            k = torch.cat([kv[..., :dn], lat[:, :, None, r:].float()
+                           .expand(1, S, H, dr)], dim=-1)
+            want = mla_plain_attention(torch, q, k, kv[..., dn:],
+                                       layer.scale)
+            err = row_rel_err(o, want)
+            fault = row_rel_err(mla_plain_attention(
+                torch, q, k, kv[..., dn:], layer.scale / (m * m)), want)
+        e_max, e_med = err.max().item(), err.median().item()
+        f_max, f_med = fault.max().item(), fault.median().item()
+        print(f"[{tag}] MLA prefill attention S={S} H={H} (q/k {dn + dr}, "
+              f"v {dv}; K1 launches {ran}) {cfg.dtype}: row relative error "
+              f"max {e_max:.3e}, median {e_med:.3e} (limit "
+              f"{MLA_ROW_REL_LIMIT:g}); planted fault, no YaRN m² in the "
+              f"scale: max {f_max:.3e}, median {f_med:.3e}")
+        check(o.shape == (1, S, H, dv) and bool(torch.isfinite(o).all()),
+              f"{tag}: MLA attention at S={S}: {tuple(o.shape)} or not "
+              "finite")
+        check(e_max < MLA_ROW_REL_LIMIT,
+              f"{tag}: MLA attention at S={S}: row relative error "
+              f"{e_max:.3e} over {MLA_ROW_REL_LIMIT:g}")
+        check(f_max > MLA_ROW_REL_LIMIT,
+              f"{tag}: the planted fault at S={S} passes the limit "
+              f"({f_max:.3e})")
+        check(ran == (1 if o.is_cuda else 0),
+              f"{tag}: {ran} K1 launches for one MLA attention")
+        worst = max(worst, e_max)
+    return worst
+
+
+def deepseek_v3_on_card(torch, fa, ref, kernels: dict, card: str,
+                        tag: str) -> dict:
+    """Phase 25: deepseek-v3's prefill attention on the card at full
+    width, K1 timed at its padded shape, and the 31-layer model served,
+    with one prefill of each of ``MLA_PREFILL_S`` counted; returns the
+    serving run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import prefill
+
+    cfg = get_config("deepseek-v3")
+    err = check_mla_attention(torch, cfg, "cuda", MLA_PREFILL_S, tag=tag)
+    print(f"[{tag}] MLA prefill attention: largest row error {err:.3e} "
+          f"[{card}]")
+    free_card(torch)
+    for S in MLA_PREFILL_S:
+        time_attention(torch, fa, ref, 1, S, cfg.n_heads, cfg.n_heads, 256)
+    free_card(torch)
+
+    def one_prefill(params, cfg):
+        g = torch.Generator(device="cuda").manual_seed(DEEPSEEK_LAYERS)
+        for S in MLA_PREFILL_S:
+            toks = torch.randint(1, cfg.vocab, (1, S), generator=g,
+                                 device="cuda")
+            for mod in kernels.values():
+                mod.launches = 0
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with torch.no_grad():
+                start.record()
+                logits, _ = prefill(params, toks, cfg, max_len=S)
+                end.record()
+            torch.cuda.synchronize()
+            ran = {name: mod.launches for name, mod in kernels.items()}
+            print(f"[{tag}] one prefill of {S} tokens through "
+                  f"{cfg.n_layers} layers: launches {ran}, "
+                  f"{start.elapsed_time(end):.2f} ms (CUDA events)")
+            check(bool(torch.isfinite(logits).all()),
+                  f"{tag}: the prefill's logits are not finite")
+            check(ran == {"flash_attention": DEEPSEEK_LAYERS,
+                          "rglru_scan": 0, "wkv6": 0, "flash_decode": 0},
+                  f"{tag}: one prefill launched {ran}, want K1 "
+                  f"{DEEPSEEK_LAYERS} and nothing else")
+
+    launches = serve_full_width(
+        torch, "deepseek-v3", kernels,
+        {"flash_attention": DEEPSEEK_LAYERS, "rglru_scan": 0, "wkv6": 0},
+        tag, n_layers=DEEPSEEK_LAYERS, after=one_prefill)
+    free_card(torch)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2550,6 +2721,8 @@ def main() -> int:
                                           "dry-run")
     analyzer_on_card(card, "analyzer")
     recurrent = train_recurrent(torch, kernels, card, "train recurrent")
+    deepseek_v3 = deepseek_v3_on_card(torch, fa, ref, kernels, card,
+                                      "deepseek-v3")
 
     paths = {"llama3.2-1b": llama, "recurrentgemma-2b": rgemma,
              "rwkv6-7b": rwkv, "train llama3.2-1b": train,
@@ -2566,7 +2739,8 @@ def main() -> int:
              remat_launches,
              "dry-run's small prefills on the card": dryrun_launches,
              "train recurrentgemma-2b and rwkv6-7b (8 of 32 layers)":
-             recurrent}
+             recurrent,
+             "deepseek-v3 (31 of 61 layers)": deepseek_v3}
 
     def row(name, src, replaces, err, t):
         return {"name": name, "route": "cuda",

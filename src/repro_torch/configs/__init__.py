@@ -9,7 +9,11 @@ and internvl2-1b and musicgen-medium, which take a frontend ``prefix``),
 the mixture-of-experts ones (mixtral-8x22b: every layer MoE, 8 experts,
 top-2, sliding window; llama4-maverick-400b-a17b: dense and MoE layers
 1:1, 128 experts, top-1 and a shared expert), recurrentgemma-2b and
-rwkv6-7b.  The ``SHAPES`` table and its helpers are the reference's:
+rwkv6-7b.  Beside them the port serves one arch of its own,
+deepseek-v3 (:data:`PORT_ARCH_IDS`: latent attention, 256 sigmoid-routed
+experts of which a card holds 8), which :func:`get_config` resolves and
+the tables shared with the reference leave out.  The ``SHAPES`` table
+and its helpers are the reference's:
 the four input-shape cells, and which (arch × shape) cells are runnable
 (``long_500k`` needs a sub-quadratic decode path); the dry-run of
 :mod:`repro_torch.launch.dryrun` walks them.
@@ -42,6 +46,9 @@ ARCH_IDS = {
     "rwkv6-7b": "rwkv6_7b",
 }
 
+#: the port's own archs, served but not in the reference's tables
+PORT_ARCH_IDS = {"deepseek-v3": "deepseek_v3"}
+
 
 @dataclass(frozen=True)
 class ShapeSpec:
@@ -60,10 +67,11 @@ SHAPES = {
 
 
 def _module(arch: str):
-    mod = ARCH_IDS.get(arch, arch)
-    if mod not in ARCH_IDS.values():
+    ids = {**ARCH_IDS, **PORT_ARCH_IDS}
+    mod = ids.get(arch, arch)
+    if mod not in ids.values():
         raise ValueError(f"unknown arch {arch!r}; the port serves: "
-                         + ", ".join(ARCH_IDS))
+                         + ", ".join(ids))
     return importlib.import_module(f".{mod}", __name__)
 
 

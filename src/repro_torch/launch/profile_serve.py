@@ -14,7 +14,8 @@ with the most device time and the port's own kernels (K1, K2, K3) with
 their launches per step, and the program's spans
 (:mod:`repro_torch.trace.spans`, on while the profiler runs): each
 span's calls, host milliseconds and the device milliseconds of the
-kernels launched inside it.  ``--out`` also writes them as JSON.  The
+kernels launched inside it, and its counters (deepseek-v3's
+``moe.pairs_routed`` and ``moe.pairs_held``).  ``--out`` also writes them as JSON.  The
 weights are made, and a warm-up run is served, before the profiler
 starts.  ``--layers N`` cuts the depth to N layers, at full width, for
 a model whose weights do not fit one card (llama4-maverick-400b-a17b at
@@ -110,6 +111,7 @@ def main() -> None:
                        max_batch=args.max_batch, max_new=args.max_new,
                        seed=args.seed, params=params)
     spans.disable()
+    counters = spans.counters()
     spans.reset()
     events = prof.key_averages()
     kernels = kernel_events(events)
@@ -139,7 +141,7 @@ def main() -> None:
                "decode_ticks": engine.ticks,
                "launches_per_step": launches / steps,
                "top": top, "port_kernels": ours,
-               "spans": span_rows(events)}
+               "spans": span_rows(events), "counters": counters}
     print(f"{card}: {cfg.name}, {args.requests} requests, "
           f"{summary['tokens']} tokens; wall {wall:.4f} s (profiled), "
           f"device kernels {device_s:.4f} s, idle share "
@@ -154,6 +156,8 @@ def main() -> None:
             print(f"  {r['device_ms']:10.3f} ms  {r['calls']:6d} calls  "
                   f"{r['kernel']}{per_step}")
     print_spans(summary["spans"])
+    for name, n in counters.items():
+        print(f"  counter {name}: {n}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(summary, f, indent=1)

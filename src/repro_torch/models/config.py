@@ -9,6 +9,12 @@ Layer kinds:
   ``moe``     GQA attention + mixture-of-experts FFN
   ``rglru``   RG-LRU recurrent block (RecurrentGemma)
   ``rwkv``    RWKV-6 time-mix + channel-mix block (attention-free)
+
+:class:`MLAConfig` (the port's own; :class:`ModelConfig` stays the JAX
+package's field for field) adds what DeepSeek-V3 needs: latent attention
+(MLA) in the ``attn`` and ``moe`` layers, leading dense layers, experts
+narrower than the dense MLP, DeepSeek-V3's sigmoid routing, and the
+share of the routed experts this card holds (expert parallelism).
 """
 
 from __future__ import annotations
@@ -17,7 +23,7 @@ import dataclasses
 import enum
 from dataclasses import dataclass
 
-__all__ = ["LayerKind", "ModelConfig"]
+__all__ = ["LayerKind", "ModelConfig", "MLAConfig"]
 
 
 class LayerKind(str, enum.Enum):
@@ -106,6 +112,18 @@ class ModelConfig:
         """Trailing layers not forming a full pattern (unrolled)."""
         return self.n_layers % len(self.pattern)
 
+    # -- what MLAConfig changes (the reference's layers here) -----------------------
+
+    @property
+    def n_held(self) -> int:
+        """Routed experts whose weights this card holds."""
+        return self.n_experts
+
+    @property
+    def expert_width(self) -> int:
+        """Width of each routed and shared expert."""
+        return self.d_ff
+
     @property
     def attention_free(self) -> bool:
         return all(k in (LayerKind.RWKV,) for k in self.pattern)
@@ -142,8 +160,7 @@ class ModelConfig:
             active += self.padded_vocab() * d
         for i, kind in enumerate(self.layer_kinds()):
             if kind in (LayerKind.ATTN, LayerKind.MOE):
-                attn = d * self.n_heads * hd + 2 * d * self.kv_heads * hd \
-                    + self.n_heads * hd * d
+                attn = self._attn_params()
                 total += attn
                 active += attn
             if kind is LayerKind.ATTN:
@@ -151,11 +168,9 @@ class ModelConfig:
                 total += m
                 active += m
             elif kind is LayerKind.MOE:
-                m1 = d * ff * (3 if self.mlp in ("swiglu", "geglu") else 2)
-                total += self.n_experts * m1 + d * self.n_experts
-                active += (self.top_k + self.n_shared_experts) * m1 \
-                    + d * self.n_experts
-                total += self.n_shared_experts * m1
+                t, a = self._moe_params()
+                total += t
+                active += a
             elif kind is LayerKind.RGLRU:
                 rnn = self.rnn_width or d
                 blk = d * rnn * 2 + rnn * d + rnn * self.conv_width \
@@ -169,3 +184,89 @@ class ModelConfig:
                 total += tm + cm
                 active += tm + cm
         return total, active
+
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.head_dim
+        return d * self.n_heads * hd + 2 * d * self.kv_heads * hd \
+            + self.n_heads * hd * d
+
+    def _moe_params(self) -> tuple[int, int]:
+        """(total, active per token) of one MoE layer's experts and
+        router."""
+        m1 = self.d_model * self.expert_width \
+            * (3 if self.mlp in ("swiglu", "geglu") else 2)
+        router = self.d_model * self.n_experts
+        return ((self.n_experts + self.n_shared_experts) * m1 + router,
+                (self.top_k + self.n_shared_experts) * m1 + router)
+
+
+@dataclass(frozen=True)
+class MLAConfig(ModelConfig):
+    """A :class:`ModelConfig` with DeepSeek-V3's layers (the port's own).
+
+    * Latent attention (:mod:`repro_torch.models.mla`) in every ``attn``
+      and ``moe`` layer; the first ``first_k_dense_replace`` layers are
+      ``attn`` (a dense MLP of width ``d_ff``) whatever the pattern.
+    * Experts of width ``moe_intermediate_size`` (the shared ones too).
+    * DeepSeek-V3's router (sigmoid scores, a bias for the choice,
+      ``topk_group`` of ``n_group`` groups, gates renormalised ×
+      ``routed_scaling_factor``), dropless over the ``experts_held``
+      experts from ``expert_first`` that this card holds of the router's
+      ``n_experts`` (0 ⇒ all).
+    * YaRN scaling of the rope dims' frequencies and of the scores.
+    """
+
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 1536
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    first_k_dense_replace: int = 0
+    moe_intermediate_size: int = 0        # 0 ⇒ d_ff
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scaling_factor: float = 1.0
+    experts_held: int = 0
+    expert_first: int = 0
+    #: YaRN (factor 1 ⇒ plain RoPE), as the published ``rope_scaling``
+    yarn_factor: float = 1.0
+    yarn_original_max_position_embeddings: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+
+    def layer_kinds(self) -> list[LayerKind]:
+        return [LayerKind.ATTN if i < self.first_k_dense_replace else k
+                for i, k in enumerate(super().layer_kinds())]
+
+    @property
+    def n_held(self) -> int:
+        return self.experts_held or self.n_experts
+
+    @property
+    def expert_width(self) -> int:
+        return self.moe_intermediate_size or self.d_ff
+
+    def _attn_params(self) -> int:
+        """The query's down and up projections, the latent's (with the
+        shared rope key), the latent's up to keys and values, the output
+        (norms left out, as for GQA)."""
+        d, H, r = self.d_model, self.n_heads, self.kv_lora_rank
+        q_head = self.qk_nope_head_dim + self.qk_rope_head_dim
+        return (d * self.q_lora_rank + self.q_lora_rank * H * q_head
+                + d * (r + self.qk_rope_head_dim)
+                + r * H * (self.qk_nope_head_dim + self.v_head_dim)
+                + H * self.v_head_dim * d)
+
+    def _moe_params(self) -> tuple[int, int]:
+        """The experts held, the shared ones, the router and its bias; a
+        token meets ``top_k`` of the ``n_experts``, held/n_experts of
+        them here."""
+        m1 = self.d_model * self.expert_width \
+            * (3 if self.mlp in ("swiglu", "geglu") else 2)
+        router = (self.d_model + 1) * self.n_experts       # and its bias
+        shared = self.n_shared_experts * m1
+        return (self.n_held * m1 + shared + router,
+                self.top_k * self.n_held * m1 // self.n_experts + shared
+                + router)

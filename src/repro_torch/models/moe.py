@@ -21,8 +21,24 @@ style capacity-bounded one-hot dispatch, with the reference's semantics.
 * The sequence goes in chunks of ``moe_seq_chunk`` (each checkpointed
   when gradients are taken, as the reference's ``jax.checkpoint`` scan
   body); the aux is the mean over the chunks.
-* ``n_shared_experts`` adds an MLP of width ``d_ff · n_shared_experts``
-  on the un-dispatched input.
+* ``n_shared_experts`` adds an MLP of width ``expert_width ·
+  n_shared_experts`` on the un-dispatched input.
+
+DeepSeek-V3's experts (an ``MLAConfig``'s, :func:`route_sigmoid`) route
+differently and drop nothing.  The router scores all ``n_experts``
+with a sigmoid in float32, chooses by the scores plus a bias
+(``e_score_correction_bias``) within the ``topk_group`` best of
+``n_group`` groups, and weighs the chosen by their scores without the
+bias, renormalised and × ``routed_scaling_factor``.  This card holds
+``experts_held`` of them (from ``expert_first``), as one chip of an
+expert-parallel deployment does: every token is routed over all
+experts, and the layer adds only what its own experts give; a pair
+routed to an expert held elsewhere adds nothing here.  Each held expert
+runs over every token of the chunk, its gate 0 where the token did not
+choose it, so that no count leaves the device (:func:`_held_chunk`).
+The counters ``moe.pairs_routed`` and ``moe.pairs_held`` (spans on) count
+the (token, choice) pairs and those routed to a held expert.  There is
+no aux loss (0).
 """
 
 from __future__ import annotations
@@ -36,9 +52,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..trace import spans
+from .config import MLAConfig
 from .layers import MLP, _fill_mlp, _normal_, _param, mlp_apply
 
-__all__ = ["moe_apply", "MoE", "fill_moe"]
+__all__ = ["moe_apply", "route_sigmoid", "MoE", "fill_moe"]
 
 
 def _dispatch_chunk(xc: torch.Tensor, p: Mapping, cfg
@@ -88,15 +105,64 @@ def _dispatch_chunk(xc: torch.Tensor, p: Mapping, cfg
     return out, aux
 
 
+def route_sigmoid(x: torch.Tensor, p: Mapping, cfg
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """DeepSeek-V3's router over x (..., d): (the chosen experts (...,
+    top_k) of all ``n_experts``, their gates (..., top_k) float32).  As
+    the published ``MoEGate``: experts outside the kept groups are
+    masked to 0 before the top-k, and the gates are the scores
+    renormalised (+1e-20) and scaled."""
+    scores = torch.sigmoid(x.float() @ p["router"].float())
+    choice = scores + p["bias"].float()
+    groups = choice.unflatten(-1, (cfg.n_group, -1))
+    best = groups.topk(2, dim=-1).values.sum(-1)          # (..., G)
+    kept = torch.zeros_like(best, dtype=torch.bool).scatter_(
+        -1, best.topk(cfg.topk_group, dim=-1).indices, True)
+    choice = groups.masked_fill(~kept[..., None], 0.0).flatten(-2)
+    idx = choice.topk(cfg.top_k, dim=-1).indices
+    gates = scores.gather(-1, idx)
+    gates = gates / (gates.sum(-1, keepdim=True) + 1e-20)
+    return idx, gates * cfg.routed_scaling_factor
+
+
+def _held_chunk(xc: torch.Tensor, p: Mapping, cfg
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One sequence chunk through the held experts, dropless.
+    xc: (B, c, d) → (out (B, c, d), aux 0)."""
+    B, c, d = xc.shape
+    n, E = B * c, cfg.n_held
+    with spans.span("moe.dispatch"):
+        idx, gates = route_sigmoid(xc, p, cfg)
+        local = idx.view(n, -1) - cfg.expert_first
+        held = (local >= 0) & (local < E)
+        spans.add("moe.pairs_routed", idx.numel())
+        spans.add("moe.pairs_held", held)
+        # each token's gate for each held expert (it chooses one at most
+        # once); the pairs held elsewhere go to column E, dropped
+        combine = torch.zeros((n, E + 1), dtype=torch.float32,
+                              device=xc.device).scatter_(
+            1, torch.where(held, local, E), gates.view(n, -1))[:, :E]
+    with spans.span("moe.experts"):
+        xe = xc.reshape(1, n, d).expand(E, n, d)
+        h = F.silu(torch.bmm(xe, p["w1"]))
+        if "w3" in p:
+            h = h * torch.bmm(xe, p["w3"])
+        ye = torch.bmm(h, p["w2"])                           # (E, n, d)
+        out = (ye * combine.T[..., None].to(ye.dtype)).sum(0)
+    return out.view(B, c, d), torch.zeros((), dtype=torch.float32,
+                                          device=xc.device)
+
+
 def moe_apply(x: torch.Tensor, p: Mapping, cfg
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) → (out (B, S, d), aux loss scalar, float32).  ``p``
-    holds ``router``, ``w1``, ``w2`` (and ``w3``) and, with shared
-    experts, ``shared`` (an MLP's leaves)."""
+    holds ``router``, ``w1``, ``w2`` (and ``w3``), ``bias`` with sigmoid
+    routing and, with shared experts, ``shared`` (an MLP's leaves)."""
     B, S, d = x.shape
     chunk = cfg.moe_seq_chunk
+    dispatch = _held_chunk if isinstance(cfg, MLAConfig) else _dispatch_chunk
     if chunk <= 0 or S <= chunk:
-        out, aux = _dispatch_chunk(x, p, cfg)
+        out, aux = dispatch(x, p, cfg)
     else:
         assert S % chunk == 0, (S, chunk)
         outs, auxs = [], []
@@ -105,10 +171,10 @@ def moe_apply(x: torch.Tensor, p: Mapping, cfg
             if torch.is_grad_enabled():
                 # otherwise the backward keeps every chunk's dispatch
                 # tensors and expert activations
-                o, a = checkpoint(_dispatch_chunk, xc, p, cfg,
+                o, a = checkpoint(dispatch, xc, p, cfg,
                                   use_reentrant=False)
             else:
-                o, a = _dispatch_chunk(xc, p, cfg)
+                o, a = dispatch(xc, p, cfg)
             outs.append(o)
             auxs.append(a)
         out = torch.cat(outs, dim=1)
@@ -120,14 +186,17 @@ def moe_apply(x: torch.Tensor, p: Mapping, cfg
 
 class MoE(nn.Module):
     """The routed experts (and the shared one), with the reference's leaf
-    names: ``router`` (d, E) float32, ``w1``/``w3`` (E, d, ff), ``w2``
-    (E, ff, d), ``shared`` an :class:`~.layers.MLP`."""
+    names: ``router`` (d, E) float32, ``w1``/``w3`` (E_held, d, ff),
+    ``w2`` (E_held, ff, d), ``shared`` an :class:`~.layers.MLP`; with
+    sigmoid routing also ``bias`` (E,) float32."""
 
     def __init__(self, cfg, *, dtype, device) -> None:
         super().__init__()
-        d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+        d, ff, E = cfg.d_model, cfg.expert_width, cfg.n_held
         self.cfg = cfg
-        self.router = _param((d, E), torch.float32, device)
+        self.router = _param((d, cfg.n_experts), torch.float32, device)
+        if isinstance(cfg, MLAConfig):
+            self.bias = _param((cfg.n_experts,), torch.float32, device)
         self.w1 = _param((E, d, ff), dtype, device)
         self.w2 = _param((E, ff, d), dtype, device)
         if cfg.mlp in ("swiglu", "geglu"):
@@ -150,11 +219,14 @@ class MoE(nn.Module):
 @torch.no_grad()
 def fill_moe(m: MoE, generator: torch.Generator) -> None:
     """The reference's init scales: N(0, 1/d) for the router, w1 and w3,
-    N(0, 1/ff) for w2, the shared expert as an MLP.  Each stack is drawn
-    one expert at a time, so that no float32 copy of a whole stack exists
+    N(0, 1/ff) for w2, the shared expert as an MLP; the router's bias 0,
+    as the published model initialises it.  Each stack is drawn one
+    expert at a time, so that no float32 copy of a whole stack exists
     (one of llama4-maverick's is 5.4 G elements)."""
-    d, ff = m.cfg.d_model, m.cfg.d_ff
+    d, ff = m.cfg.d_model, m.cfg.expert_width
     _normal_(m.router, 1.0 / math.sqrt(d), generator)
+    if hasattr(m, "bias"):
+        m.bias.zero_()
     stacks = [(m.w1, d), (m.w2, ff)]
     if hasattr(m, "w3"):
         stacks.append((m.w3, d))

@@ -8,7 +8,9 @@ an ``nn.ModuleList`` and loops.  Dense attention (llama3.2-1b, gemma2-9b's
 alternating local/global layers, qwen1.5-110b, deepseek-coder-33b,
 internvl2-1b, musicgen-medium), mixture-of-experts layers (mixtral-8x22b,
 llama4-maverick-400b-a17b, whose dense and MoE layers alternate), the
-RG-LRU hybrid (recurrentgemma-2b) and RWKV-6 (rwkv6-7b).  :func:`forward`
+RG-LRU hybrid (recurrentgemma-2b), RWKV-6 (rwkv6-7b), and latent
+attention with dense and expert layers (:class:`MLALayer`,
+:class:`MLAMoELayer`: deepseek-v3).  :func:`forward`
 and :func:`lm_loss` sum the MoE layers' aux loss terms, as the reference
 does; :func:`prefill` and :func:`decode_step` drop them.
 
@@ -24,8 +26,8 @@ Public entry points, with the reference's names and semantics:
 * :func:`forward` — full-sequence logits
 * :func:`lm_loss` — the training loss: masked token cross-entropy
 * :func:`init_cache` — decode state, one dict per layer: ``{"k", "v"}``
-  for attention, ``{"h", "conv"}`` for RG-LRU, ``{"shift_t", "shift_c",
-  "wkv"}`` for RWKV
+  for attention, ``{"latent"}`` for latent attention, ``{"h",
+  "conv"}`` for RG-LRU, ``{"shift_t", "shift_c", "wkv"}`` for RWKV
 * :func:`prefill` — forward that also fills the decode cache
 * :func:`decode_step` — one-token serving step
 * :func:`param_specs`, :func:`cache_specs` — the reference's partition
@@ -44,6 +46,7 @@ from __future__ import annotations
 
 import math
 from functools import partial
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -51,9 +54,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..trace import spans
-from .config import LayerKind, ModelConfig
+from .config import LayerKind, MLAConfig, ModelConfig
 from .layers import (AttnLayer, MoELayer, decode_gqa_attention,
                      fill_attn_layer, fill_moe_layer, rmsnorm)
+from .mla import MLALayer, MLAMoELayer, fill_mla_layer
 from .rglru import RGLRULayer, fill_rglru_layer
 from .rwkv import HEAD_SIZE, RWKVLayer, fill_rwkv_layer
 from .sharding import P, Rules
@@ -88,6 +92,9 @@ def resolve_device(device: str | torch.device) -> torch.device:
 
 _LAYERS = {LayerKind.ATTN: AttnLayer, LayerKind.MOE: MoELayer,
            LayerKind.RGLRU: RGLRULayer, LayerKind.RWKV: RWKVLayer}
+_MLA_LAYERS = {LayerKind.ATTN: MLALayer, LayerKind.MOE: MLAMoELayer}
+#: the layers whose ``finish`` also returns an aux loss term
+_MOE = (MoELayer, MLAMoELayer)
 
 
 class Transformer(nn.Module):
@@ -111,8 +118,10 @@ class Transformer(nn.Module):
             self.lm_head = nn.Parameter(
                 torch.empty(cfg.d_model, cfg.padded_vocab(), dtype=dtype,
                             device=device), requires_grad=False)
+        kinds = {**_LAYERS, **_MLA_LAYERS} if isinstance(cfg, MLAConfig) \
+            else _LAYERS
         self.layers = nn.ModuleList(
-            _LAYERS[kind](cfg, dtype=dtype, device=device)
+            kinds[kind](cfg, dtype=dtype, device=device)
             for kind in cfg.layer_kinds())
 
     def local(self, i: int) -> bool:
@@ -170,6 +179,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
             fill_rglru_layer(layer, generator)
         elif isinstance(layer, RWKVLayer):
             fill_rwkv_layer(layer, generator)
+        elif isinstance(layer, MLALayer):
+            fill_mla_layer(layer, generator)
         elif isinstance(layer, MoELayer):
             fill_moe_layer(layer, generator)
         else:
@@ -190,9 +201,9 @@ def _run(params: Transformer, h: torch.Tensor, positions: torch.Tensor,
                 h = layer(h)[0]
         elif isinstance(layer, RGLRULayer):
             h = layer(h)[0]
-        elif isinstance(layer, MoELayer):
-            h, _, _, a = layer(h, positions, local=params.local(i))
-            aux = aux + a
+        elif isinstance(layer, _MOE):
+            out = layer(h, positions, local=params.local(i))
+            h, aux = out[0], aux + out[-1]
         else:
             h = layer(h, positions, local=params.local(i))[0]
     return h, aux
@@ -381,7 +392,9 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
                device: str | torch.device = "cuda") -> list[dict]:
     """Zeros, one dict per layer: for attention and MoE layers a
     ``{"k", "v"}`` pair of (B, Sc, KV, D), Sc the window for local layers
-    and ``max_len`` otherwise; for RG-LRU ``{"h": (B, R) float32,
+    and ``max_len`` otherwise, or with latent attention ``{"latent": (B,
+    max_len, kv_lora_rank + qk_rope_head_dim)}`` (c_kv, then the rope
+    key); for RG-LRU ``{"h": (B, R) float32,
     "conv": (B, W−1, R) bfloat16}``; for RWKV ``{"shift_t", "shift_c":
     (B, d) bfloat16, "wkv": (B, d/64, 64, 64) float32}``."""
     device = resolve_device(device)
@@ -406,6 +419,11 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
                                  device=device),
                 "conv": torch.zeros((B, cfg.conv_width - 1, R),
                                     dtype=torch.bfloat16, device=device)})
+            continue
+        if isinstance(cfg, MLAConfig):
+            width = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+            cache.append({"latent": torch.zeros((B, max_len, width),
+                                                dtype=cdtype, device=device)})
             continue
         local = cfg.layer_is_local(i % len(cfg.pattern))
         Sc = min(cfg.window, max_len) if (local and cfg.window) else max_len
@@ -437,7 +455,72 @@ def decode_step(params: Transformer, token: torch.Tensor, pos: torch.Tensor,
     """One serving step.  token: (B,) int; pos: int scalar or (B,) vector
     (continuous batching).  Writes this step's keys and values, and the
     recurrent states, into ``cache`` in place (an RWKV layer's dict gets
-    the new state tensors); returns (logits (B, V), cache)."""
+    the new state tensors); returns (logits (B, V), cache).
+
+    On the card, with the spans off, a step whose every layer declares
+    its decode capturable (:func:`_capturable`) is replayed from a CUDA
+    graph (:func:`_graphed_decode`): DeepSeek-V3's plain-PyTorch
+    launches, ~2,500 a step at 31 layers, would otherwise take the host
+    twice the device's time."""
+    if token.is_cuda and not spans.enabled() and _capturable(params):
+        pos = torch.as_tensor(pos, device=token.device)
+        return _graphed_decode(params, token, pos, cache, cfg), cache
+    return _decode_step(params, token, pos, cache, cfg)
+
+
+def _capturable(params: Transformer) -> bool:
+    """True if every layer's ``graph_decode`` says that its decode step
+    writes its cache in place and reads nothing back to the host, so
+    that a CUDA graph captured once replays it for any token and
+    position.  Only the latent-attention layers say so: an RWKV layer
+    hands back new state tensors, and the other layers' capture has not
+    been measured."""
+    return all(getattr(layer, "graph_decode", False)
+               for layer in params.layers)
+
+
+class _Graph(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    token: torch.Tensor
+    pos: torch.Tensor
+    logits: torch.Tensor
+    cache: list[torch.Tensor]
+
+
+@torch.no_grad()
+def _graphed_decode(params: Transformer, token: torch.Tensor,
+                    pos: torch.Tensor, cache: list[dict],
+                    cfg: ModelConfig) -> torch.Tensor:
+    """:func:`_decode_step` captured once in a CUDA graph for this cache
+    (held by ``params``, with its inputs and logits) and replayed.  The
+    capture runs the step eagerly first, on a side stream, with this
+    call's inputs: it writes this step's latents, which the replay then
+    writes again, the same values."""
+    held = getattr(params, "_decode_graph", None)
+    tensors = [t for c in cache for t in c.values()]
+    if held is None or held.token.shape != token.shape \
+            or held.pos.shape != pos.shape \
+            or any(a is not b for a, b in zip(held.cache, tensors)):
+        params._decode_graph = None         # free the last graph first
+        tok, at = token.clone(), pos.clone()
+        side = torch.cuda.Stream(device=token.device)
+        side.wait_stream(torch.cuda.current_stream(token.device))
+        with torch.cuda.stream(side):
+            _decode_step(params, tok, at, cache, cfg)
+        torch.cuda.current_stream(token.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            logits = _decode_step(params, tok, at, cache, cfg)[0]
+        held = params._decode_graph = _Graph(graph, tok, at, logits, tensors)
+    held.token.copy_(token)
+    held.pos.copy_(pos)
+    held.graph.replay()
+    return held.logits.clone()
+
+
+def _decode_step(params: Transformer, token: torch.Tensor, pos: torch.Tensor,
+                 cache: list[dict], cfg: ModelConfig
+                 ) -> tuple[torch.Tensor, list[dict]]:
     h = params.embed_tokens(token[:, None])
     B = h.shape[0]
     pos = torch.as_tensor(pos, device=h.device)
@@ -453,6 +536,14 @@ def decode_step(params: Transformer, token: torch.Tensor, pos: torch.Tensor,
             h, state = layer.step(h, c)
             c["h"].copy_(state["h"])
             c["conv"].copy_(state["conv"])
+            continue
+        if isinstance(layer, MLALayer):
+            with spans.span("model.attn"):
+                o = layer.decode(h, positions, pos, c, rows)
+            with spans.span("model.ffn"):
+                h = layer.finish(h, o)
+            if isinstance(layer, MLAMoELayer):
+                h = h[0]
             continue
         with spans.span("model.attn"):
             q, k, v = layer.qkv(h, positions)
@@ -515,6 +606,14 @@ def prefill(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
             h, state = layer(h)
             c["h"].copy_(state["h"])
             c["conv"].copy_(state["conv"])
+            continue
+        if isinstance(layer, MLALayer):
+            with spans.span("model.attn"):
+                o = layer.attention(h, positions, c, L)[0]
+            with spans.span("model.ffn"):
+                h = layer.finish(h, o)
+            if isinstance(layer, MLAMoELayer):
+                h = h[0]
             continue
         with spans.span("model.attn"):
             q, k, v = layer.qkv(h, positions)

@@ -10,7 +10,9 @@ inside the engine, the model, the train step and the kernel loader.
     spans.records()                   # [Span(name, start_ns, end_ns, ...)]
 
 ``span(name, **attrs)`` marks a piece of work where it happens;
-``add(name, n)`` counts something there.  Both are off by default, and
+``add(name, n)`` counts something there: a number, or the elements of a
+device tensor that are not zero, summed on the device without waiting
+for it (:func:`counters` reads the sums).  Both are off by default, and
 :func:`enable` / :func:`disable` are the only switch: off, ``span``
 returns one shared null context after a single check of a module flag
 (no clock read, no span object, no profiler range) and ``add`` returns
@@ -48,7 +50,7 @@ from typing import NamedTuple
 import torch
 
 __all__ = ["PREFIXES", "Span", "span", "record", "add", "enable", "disable",
-           "records", "counters", "reset"]
+           "enabled", "records", "counters", "reset"]
 
 #: the first part of every span's name, one for each module that marks
 PREFIXES = ("engine.", "model.", "moe.", "train.", "optim.", "kernels.")
@@ -126,10 +128,13 @@ def record(name: str, start_s: float, end_s: float, **attrs) -> None:
                          None, threading.get_ident(), attrs])
 
 
-def add(name: str, n: int = 1) -> None:
-    """Add ``n`` to the counter ``name``."""
+def add(name: str, n: int | torch.Tensor = 1) -> None:
+    """Add ``n`` to the counter ``name``; a tensor adds the count of its
+    nonzero elements, kept on its device until :func:`counters`."""
     if not _on:
         return
+    if isinstance(n, torch.Tensor):
+        n = torch.count_nonzero(n)
     with _lock:
         _counters[name] = _counters.get(name, 0) + n
 
@@ -144,6 +149,12 @@ def disable() -> None:
     _on = False
 
 
+def enabled() -> bool:
+    """True while spans are on: a path that runs without them (a replayed
+    CUDA graph) is left for the traced one."""
+    return _on
+
+
 def records() -> list[Span]:
     """The spans closed since the last :func:`reset`, in order of entry."""
     done = [r for r in list(_records) if r[2]]
@@ -154,8 +165,9 @@ def records() -> list[Span]:
 
 
 def counters() -> dict[str, int]:
+    """Every counter's value (a device's sums are read here)."""
     with _lock:
-        return dict(_counters)
+        return {k: int(v) for k, v in _counters.items()}
 
 
 def reset() -> None:
